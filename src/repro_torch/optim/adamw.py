@@ -1,0 +1,94 @@
+"""Inner (per-silo) optimizers: AdamW and SGD over trees of tensors
+(port of ``repro.optim.adamw``).
+
+Functional like the reference: ``update`` returns new updates and state
+and leaves its inputs alone. Global-norm clipping comes before the
+moments; moments are fp32 whatever the compute dtype; ``count`` is a
+Python int and bias correction uses ``b ** count``.
+"""
+from __future__ import annotations
+
+from typing import Callable, NamedTuple
+
+import torch
+
+from repro_torch import tree as _tree
+
+
+class Optimizer(NamedTuple):
+    init: Callable
+    update: Callable   # (grads, state, params) -> (updates, state, info)
+
+
+def clip_by_global_norm(grads, max_norm: float):
+    leaves = _tree.leaves(grads)
+    gn = torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32)))
+                        for g in leaves))
+    scale = torch.clamp(max_norm / (gn + 1e-9), max=1.0)
+    return _tree.tree_map(lambda g: g * scale, grads), gn
+
+
+def _f32_zeros(p):
+    return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+
+
+def adamw(lr, *, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
+          weight_decay: float = 0.1, max_grad_norm: float = 1.0) -> Optimizer:
+    lr_fn = lr if callable(lr) else (lambda _: lr)
+
+    def init(params):
+        return {"m": _tree.tree_map(_f32_zeros, params),
+                "v": _tree.tree_map(_f32_zeros, params), "count": 0}
+
+    def update(grads, state, params):
+        grads, gnorm = clip_by_global_norm(grads, max_grad_norm)
+        count = state["count"] + 1
+        m = _tree.tree_map(lambda m_, g: b1 * m_ + (1 - b1)
+                           * g.to(torch.float32), state["m"], grads)
+        v = _tree.tree_map(lambda v_, g: b2 * v_ + (1 - b2)
+                           * torch.square(g.to(torch.float32)),
+                           state["v"], grads)
+        c1, c2 = 1 - b1 ** count, 1 - b2 ** count
+        step_lr = lr_fn(count)
+        updates = _tree.tree_map(
+            lambda m_, v_, p: -step_lr * ((m_ / c1) / (torch.sqrt(v_ / c2)
+                                                       + eps)
+                                          + weight_decay
+                                          * p.to(torch.float32)),
+            m, v, params)
+        return (updates, {"m": m, "v": v, "count": count},
+                {"grad_norm": gnorm, "lr": step_lr})
+
+    return Optimizer(init, update)
+
+
+def sgd(lr, *, momentum: float = 0.0, max_grad_norm: float = 0.0) -> Optimizer:
+    lr_fn = lr if callable(lr) else (lambda _: lr)
+
+    def init(params):
+        st = {"count": 0}
+        if momentum:
+            st["mu"] = _tree.tree_map(_f32_zeros, params)
+        return st
+
+    def update(grads, state, params):
+        gnorm = torch.zeros(())
+        if max_grad_norm:
+            grads, gnorm = clip_by_global_norm(grads, max_grad_norm)
+        count = state["count"] + 1
+        step_lr = lr_fn(count)
+        new_state = {"count": count}
+        if momentum:
+            grads = new_state["mu"] = _tree.tree_map(
+                lambda mu_, g: momentum * mu_ + g.to(torch.float32),
+                state["mu"], grads)
+        updates = _tree.tree_map(lambda g: -step_lr * g.to(torch.float32),
+                                 grads)
+        return updates, new_state, {"grad_norm": gnorm, "lr": step_lr}
+
+    return Optimizer(init, update)
+
+
+def apply_updates(params, updates):
+    return _tree.tree_map(
+        lambda p, u: (p.to(torch.float32) + u).to(p.dtype), params, updates)

@@ -1,0 +1,88 @@
+"""Import and device hygiene of the PyTorch port.
+
+The port and ``chip_smoke.py`` import neither JAX nor anything of the
+``repro`` package, and its entry points run on CUDA unless the caller
+asks for the CPU: without CUDA they raise instead of falling back.
+"""
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+PKG = ROOT / "src" / "repro_torch"
+
+
+def _modules():
+    mods = []
+    for path in sorted(PKG.rglob("*.py")):
+        rel = path.relative_to(PKG.parent).with_suffix("")
+        parts = list(rel.parts)
+        if parts[-1] == "__init__":
+            parts = parts[:-1]
+        mods.append(".".join(parts))
+    return mods
+
+
+def test_importing_every_module_pulls_in_no_jax():
+    code = (
+        "import importlib, sys\n"
+        f"for m in {_modules()!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(k for k in sys.modules if k == 'jax' or "
+        "k.startswith(('jax.', 'jaxlib')) or k == 'repro' or "
+        "k.startswith('repro.'))\n"
+        "print(len(sys.modules), bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    res = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_sources_name_no_jax_and_no_repro():
+    bad = re.compile(r"^\s*(import\s+jax|from\s+jax|import\s+repro\.|"
+                     r"from\s+repro\.|from\s+repro\s+import|import\s+repro\s*$)",
+                     re.M)
+    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 20
+    for path in files:
+        hits = bad.findall(path.read_text())
+        assert not hits, f"{path}: {hits}"
+
+
+def test_entry_points_need_cuda_unless_asked_for_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("this host has CUDA: the default device is valid here")
+    from repro_torch.convert import params_from_numpy
+    from repro_torch.core.secure_agg import (aggregate_masked_packed,
+                                             mask_packed, repair_correction)
+    from repro_torch.core.streaming import MaskedF32Sink
+    from repro_torch.models import build_model
+    calls = [
+        lambda: build_model("fedforecast-100m"),
+        lambda: MaskedF32Sink(16),
+        lambda: mask_packed(np.zeros(4, np.float32), "a", ["a", "b"], b"s"),
+        lambda: repair_correction(4, "a", ["b"], b"s"),
+        lambda: aggregate_masked_packed([np.zeros(4, np.float32)]),
+        lambda: params_from_numpy({"w": np.zeros(2, np.float32)}),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+    # asking for the CPU works
+    assert build_model("fedforecast-100m", device="cpu").device.type == "cpu"
+    assert MaskedF32Sink(16, device="cpu").device.type == "cpu"
+
+
+def test_kernel_build_is_not_triggered_by_import():
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.secure_agg import kernel
+    assert kernel._lib.cache_info().currsize == 0
+    assert [p.name for p in _build.sources()] == ["secure_agg.cu"]
+    assert "sm_90a" in " ".join(_build.NVCC_FLAGS)
