@@ -24,12 +24,39 @@ Phases (every failed check exits non-zero):
 5. Dropout repair at full width: ``solarx`` drops after masking; the
    survivors' corrections are folded streamed (K1) and combined stacked
    (K2); both must equal the plain survivor sum.
-6. Trace: one more train step under ``torch.profiler``; prints the card's
+6. The compressed planes at full width, on phase 4's trained silos
+   (deltas = ``pack_delta(trained, init)``, T padded to Tp, a 1024
+   multiple):
+   a. int8 round: ``ErrorFeedback("int8").step`` per silo (host numpy
+      quantize + zlib), ``QuantSink`` weighted by n_examples (K3),
+      divided by the total weight; must match the f64 host sum of the
+      decompressed posts within 1e-6.
+   b. secure int8 round: ``ErrorFeedback.step_masked`` (fixed grid,
+      integer pairwise masks mod 2**16 computed on the card),
+      ``ModularSink`` and its finalize (K4); the decoded sum must equal
+      ``float32(sum q) * grid`` of the fixed-grid plain twin bitwise.
+   c. integer dropout repair: ``solarx`` drops after masking; the
+      survivors' ``int_repair_correction`` run on the card, folded
+      streamed (K4) and combined stacked (K4 with corrections); both
+      bitwise equal to the survivors' twin sum and to each other.
+   d. ``combine_pytrees`` over the trained params, weights 1/3 (K5):
+      within the largest per-client int8 scale of the plain mean.
+   e. ``aggregate_packed("fedavg")`` over the trained buffers (K1):
+      within 1e-6 of the plain mean.
+7. Trace: one more train step under ``torch.profiler``; prints the card's
    busy time against the untraced step time (the device idle share).
 
-Launch counters are reset before phase 4 and read after phase 5: both
-kernels must have run on the main path. The line before the last is the
-``kernels`` JSON record; the last line is the device record.
+Phase 3 also holds K3 ``dequant_reduce``, K4 ``masked_dequant_reduce``
+(with and without corrections) and K5 ``secure_agg_combine`` against
+their plain versions at small shapes and at the round's shapes: K3 and
+K5 within 1e-5, K4 bitwise; two launches must agree bitwise.
+
+Launch counters are reset before phase 4 and read after phase 5 (K1 and
+K2 must have run), then reset again before phase 6a and read after 6e
+(K3, K4 in both variants, K5 and K1 must have run); the kernels line
+gives the sum of both paths. Each phase
+prints its seconds and peak device memory. The line before the last is
+the ``kernels`` JSON record; the last line is the device record.
 """
 from __future__ import annotations
 
@@ -41,6 +68,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
@@ -54,7 +82,13 @@ KERNEL_ATOL = 1e-5
 ROUND_ATOL = 1e-6
 SMALL_N = (1, 2, 3, 8)
 SMALL_T = (127, 5000, 4097, 8192)
+SMALL_T_CHUNKED = (1024, 5120, 8192, 13 * 1024)   # K3/K4: 1024 multiples
+CHUNK = 1024
 REPS = 20
+# the jobs of the compressed phases: int8 with adaptive per-chunk scales,
+# the defaults of DEFAULT_DECISIONS (duck-typed for make_error_feedback)
+INT8_JOB = SimpleNamespace(compression="int8", compression_ratio=0.1,
+                           quant_bits=8, quant_range=0.0)
 
 # HBM rate (bytes/s) by card, from the published data sheets
 HBM_RATE = (("H100 PCIe", 2.0e12), ("H100 NVL", 3.9e12), ("H200", 4.8e12),
@@ -99,6 +133,17 @@ def sync_seconds(fn, *args, **kw):
     out = fn(*args, **kw)
     torch.cuda.synchronize()
     return out, time.perf_counter() - t0
+
+
+def bound_of(nbytes: int, nops: int, rate: float):
+    """(bound ms, 'bytes' or 'operations'): the larger of bytes over the
+    HBM rate and operations over the fp32 CUDA-core rate (integer ops are
+    counted at the fp32 rate too; the published table has no int32 rate
+    outside the tensor cores)."""
+    by_bytes = nbytes / rate * 1e3
+    by_ops = nops / FP32_RATE * 1e3
+    return (max(by_bytes, by_ops),
+            "bytes" if by_bytes >= by_ops else "operations")
 
 
 # ---------------------------------------------------------------------------
@@ -154,15 +199,9 @@ def kernel_phase(device, n_main: int, n_repair: int, t_main: int, card: str,
     err["masked_sum"] = max(err["masked_sum"], e1)
     err["masked_sum_corrected"] = max(err["masked_sum_corrected"], e2)
 
-    def bound(n_rows_read: int, n: int, flops_per_col: int):
-        nbytes = (n_rows_read * t_main + t_main + n) * 4
-        by_bytes = nbytes / rate * 1e3
-        by_ops = flops_per_col * t_main / FP32_RATE * 1e3
-        return (max(by_bytes, by_ops),
-                "bytes" if by_bytes >= by_ops else "operations", nbytes)
-
     rows = []
-    b1, by1, nb1 = bound(n_main, n_main, 2 * n_main)
+    nb1 = (n_main * t_main + t_main + n_main) * 4
+    b1, by1 = bound_of(nb1, 2 * n_main * t_main, rate)
     k1 = {"name": "masked_sum", "route": "cuda",
           "source": "src/repro_torch/csrc/secure_agg.cu",
           "replaces": "src/repro/kernels/secure_agg/kernel.py:68",
@@ -173,7 +212,8 @@ def kernel_phase(device, n_main: int, n_repair: int, t_main: int, card: str,
           "bound_ms": b1, "bound_by": by1,
           "library_ms": median_ms(lambda: w @ x)}
     rows.append((k1, nb1))
-    b2, by2, nb2 = bound(2 * n_repair, n_repair, 3 * n_repair)
+    nb2 = (2 * n_repair * t_main + t_main + n_repair) * 4
+    b2, by2 = bound_of(nb2, 3 * n_repair * t_main, rate)
     k2 = {"name": "masked_sum_corrected", "route": "cuda",
           "source": "src/repro_torch/csrc/secure_agg.cu",
           "replaces": "src/repro/kernels/secure_agg/kernel.py:94",
@@ -186,14 +226,139 @@ def kernel_phase(device, n_main: int, n_repair: int, t_main: int, card: str,
           "library_ms": None}
     rows.append((k2, nb2))
     for k, nbytes in rows:
-        lib = ("n/a" if k["library_ms"] is None
-               else f"{k['library_ms']:.4f} ms")
-        print(f"kernel {k['name']} N={k['shape'][0]} T={t_main}: "
-              f"{k['ms']:.4f} ms ({nbytes / k['ms'] / 1e6:.0f} GB/s), "
-              f"bound {k['bound_ms']:.4f} ms ({k['bound_by']}), plain "
-              f"{k['plain_ms']:.4f} ms, library {lib}, max err "
-              f"{k['max_abs_err']:.3g} [{card}]", flush=True)
+        print_kernel(k, nbytes, card)
     return [k for k, _ in rows]
+
+
+def print_kernel(k: dict, nbytes: int, card: str):
+    lib = "n/a" if k["library_ms"] is None else f"{k['library_ms']:.4f} ms"
+    print(f"kernel {k['name']} shape {k['shape']}: {k['ms']:.4f} ms "
+          f"({nbytes / k['ms'] / 1e6:.0f} GB/s), bound {k['bound_ms']:.4f} "
+          f"ms ({k['bound_by']}, {nbytes} bytes), plain {k['plain_ms']:.4f} "
+          f"ms, library {lib}, max err {k['max_abs_err']:.3g} [{card}]",
+          flush=True)
+
+
+def compressed_kernel_phase(device, n_main: int, n_repair: int, t_main: int,
+                            card: str, rate: float):
+    """K3, K4 (both variants) and K5 against their plain versions on the
+    card, at small shapes and at the round's shapes; their times."""
+    import torch
+    from repro_torch.kernels.compressed_agg import ops as cops
+    from repro_torch.kernels.compressed_agg import ref as cref
+    from repro_torch.kernels.secure_agg import ops as sops
+    from repro_torch.kernels.secure_agg import ref as sref
+
+    gen = torch.Generator(device=device).manual_seed(4321)
+
+    def uniform(lo, hi, *shape):
+        return torch.rand(*shape, generator=gen, device=device) * (hi - lo) \
+            + lo
+
+    def int8(*shape):
+        return torch.randint(-127, 128, shape, generator=gen, device=device,
+                             dtype=torch.int8)
+
+    def u32(*shape):
+        # uniform 32-bit patterns, as int32 storage
+        return torch.randint(-2 ** 31, 2 ** 31, shape, generator=gen,
+                             device=device, dtype=torch.int32)
+
+    err = {"dequant_reduce": 0.0, "masked_dequant_reduce": 0.0,
+           "masked_dequant_reduce_corrected": 0.0, "secure_agg_combine": 0.0}
+
+    def k3(q, s, w):
+        a, b = cops.dequant_reduce(q, s, w), cops.dequant_reduce(q, s, w)
+        check(torch.equal(a, b), f"K3 repeat bitwise at {tuple(q.shape)}")
+        e = float((a - cref.dequant_reduce_ref(q, s, w)).abs().max())
+        check(e <= KERNEL_ATOL, f"K3 matches plain at {tuple(q.shape)}: {e}")
+        err["dequant_reduce"] = max(err["dequant_reduce"], e)
+
+    def k4(z, g, mbits, c=None):
+        name = ("masked_dequant_reduce" if c is None
+                else "masked_dequant_reduce_corrected")
+        a = cops.masked_dequant_reduce(z, g, modulus_bits=mbits, corr=c)
+        b = cops.masked_dequant_reduce(z, g, modulus_bits=mbits, corr=c)
+        p = cref.masked_dequant_reduce_ref(z, g, mbits, corr=c)
+        check(torch.equal(a, b) and torch.equal(a, p),
+              f"{name} bitwise equal to plain at {tuple(z.shape)} "
+              f"mbits {mbits}")
+        err[name] = max(err[name], float((a - p).abs().max()))
+
+    def k5(q, s, w):
+        a = sops.secure_agg_combine(q, s, w)
+        b = sops.secure_agg_combine(q, s, w)
+        check(torch.equal(a, b), f"K5 repeat bitwise at {tuple(q.shape)}")
+        e = float((a - sref.secure_agg_ref(q, s, w)).abs().max())
+        check(e <= KERNEL_ATOL, f"K5 matches plain at {tuple(q.shape)}: {e}")
+        err["secure_agg_combine"] = max(err["secure_agg_combine"], e)
+
+    for n in SMALL_N:
+        for t in SMALL_T_CHUNKED:
+            k3(int8(n, t), uniform(1e-6, 1e-2, n, t // CHUNK),
+               uniform(0.0, 1.0, n))
+            for mbits in (16, 32):
+                g = uniform(1e-6, 1e-2, t // CHUNK)
+                k4(u32(n, t), g, mbits)
+                k4(u32(n, t), g, mbits, u32(n, t))
+        for t in SMALL_T:
+            w = torch.softmax(uniform(-1.0, 1.0, n), 0)
+            k5(int8(n, t), uniform(1e-4, 1e-2, n), w)
+    print(f"kernels: K3/K4/K5 match at {len(SMALL_N)} x 4 small shapes "
+          f"each (max err K3 {err['dequant_reduce']:.3g}, K5 "
+          f"{err['secure_agg_combine']:.3g}, atol {KERNEL_ATOL}; K4 "
+          f"bitwise at mbits 16 and 32, with and without corrections)",
+          flush=True)
+
+    tp = t_main + (-t_main) % CHUNK
+    q3, s3, w3 = (int8(n_main, tp), uniform(1e-6, 1e-2, n_main, tp // CHUNK),
+                  uniform(0.0, 1.0, n_main))
+    k3(q3, s3, w3)
+    g = uniform(1e-6, 1e-2, tp // CHUNK)
+    z1 = u32(1, tp)
+    z2, c2 = u32(n_repair, tp), u32(n_repair, tp)
+    k4(z1, g, 16)
+    k4(z2, g, 16, c2)
+    q5 = int8(n_main, t_main)
+    s5, w5 = uniform(1e-4, 1e-2, n_main), torch.full(
+        (n_main,), 1.0 / n_main, device=device)
+    k5(q5, s5, w5)
+
+    nb3 = n_main * tp + 4 * n_main * (tp // CHUNK) + 4 * n_main + 4 * tp
+    nb4 = 4 * tp + 4 * (tp // CHUNK) + 4 * tp
+    nb4c = 2 * 4 * n_repair * tp + 4 * (tp // CHUNK) + 4 * tp
+    nb5 = n_main * t_main + 8 * n_main + 4 * t_main
+    src_c = "src/repro_torch/csrc/compressed_agg.cu"
+    jax_c = "src/repro/kernels/compressed_agg/kernel.py"
+    specs = [
+        ("dequant_reduce", src_c, f"{jax_c}:45", [n_main, tp], nb3,
+         3 * n_main * tp, lambda: cops.dequant_reduce(q3, s3, w3),
+         lambda: cref.dequant_reduce_ref(q3, s3, w3)),
+        ("masked_dequant_reduce", src_c, f"{jax_c}:94", [1, tp], nb4,
+         6 * tp, lambda: cops.masked_dequant_reduce(z1, g, modulus_bits=16),
+         lambda: cref.masked_dequant_reduce_ref(z1, g, 16)),
+        ("masked_dequant_reduce_corrected", src_c, f"{jax_c}:110",
+         [n_repair, tp], nb4c, (2 * n_repair + 5) * tp,
+         lambda: cops.masked_dequant_reduce(z2, g, modulus_bits=16, corr=c2),
+         lambda: cref.masked_dequant_reduce_ref(z2, g, 16, corr=c2)),
+        ("secure_agg_combine", "src/repro_torch/csrc/secure_agg.cu",
+         "src/repro/kernels/secure_agg/kernel.py:59", [n_main, t_main], nb5,
+         2 * n_main * t_main + n_main,
+         lambda: sops.secure_agg_combine(q5, s5, w5),
+         lambda: sref.secure_agg_ref(q5, s5, w5)),
+    ]
+    rows = []
+    for name, source, replaces, shape, nbytes, nops, fn, plain in specs:
+        b, by = bound_of(nbytes, nops, rate)
+        # no single PyTorch call computes any of these functions
+        k = {"name": name, "route": "cuda", "source": source,
+             "replaces": replaces, "shape": shape,
+             "max_abs_err": err[name], "ms": median_ms(fn),
+             "plain_ms": median_ms(plain), "bound_ms": b, "bound_by": by,
+             "library_ms": None}
+        print_kernel(k, nbytes, card)
+        rows.append(k)
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -228,7 +393,7 @@ def round_phase(cfg, device, card: str):
     opt = adamw(LR, weight_decay=0.0)
     step = make_train_step(model, opt)
     stage = {"train_step": [], "pack": [], "mask": []}
-    plain, masked, losses = {}, {}, []
+    plain, masked, trained, losses = {}, {}, {}, []
     for cid in SILOS:
         p, o = params, opt.init(params)
         for _ in range(LOCAL_STEPS):
@@ -244,7 +409,8 @@ def round_phase(cfg, device, card: str):
         masked[cid], s = sync_seconds(mask_packed, buf * weight, cid,
                                       cohort, SECRET, device=device)
         stage["mask"].append(s)
-        del p, o
+        trained[cid] = p
+        del o
     check(all(math.isfinite(v) for v in losses),
           f"finite train losses {losses}")
 
@@ -280,6 +446,8 @@ def round_phase(cfg, device, card: str):
     print(f"round: new global digest {pytree_digest(new_global)}",
           flush=True)
     return {"T": layout.total_size, "plain": plain, "masked": masked,
+            "init": params, "trained": trained,
+            "n_examples": {c: LOCAL_STEPS * BATCH_SIZE for c in SILOS},
             "step": step, "opt": opt, "global": new_global,
             "batch": datasets[SILOS[0]].batch(BATCH_SIZE),
             "step_s": med["train_step"]}
@@ -320,6 +488,225 @@ def repair_phase(state, device, card: str):
           f"(atol {ROUND_ATOL}); corrections {s_corr:.4f} s, streamed "
           f"fold {s_stream:.4f} s, stacked combine {s_stack:.4f} s "
           f"[{card}]", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# phase 6: the compressed planes, on the round's trained silos
+# ---------------------------------------------------------------------------
+def host_seconds(fn, *args, **kw):
+    """``(fn(*args, **kw), seconds)`` on the host clock alone."""
+    t0 = time.perf_counter()
+    out = fn(*args, **kw)
+    return out, time.perf_counter() - t0
+
+
+def silo_delta(state, cid: str, stage: dict):
+    """The silo's packed delta on the card, then on the host (the coding
+    is numpy); times both steps into ``stage``."""
+    from repro_torch.core.protocol import pack_delta
+    delta, s = sync_seconds(pack_delta, state["trained"][cid], state["init"])
+    stage.setdefault("pack_delta", []).append(s)
+    host, s = sync_seconds(lambda: delta.cpu().numpy())
+    stage.setdefault("to_host", []).append(s)
+    return host
+
+
+def print_stages(what: str, stage: dict, card: str):
+    print(f"{what} stages (s): " + ", ".join(
+        f"{k} " + "/".join(f"{v:.4f}" for v in vals)
+        for k, vals in stage.items()) + f" [{card}]", flush=True)
+
+
+def int8_phase(state, device, card: str):
+    """6a: a plain int8 round, adaptive per-chunk scales, through K3."""
+    import numpy as np
+    from repro_torch.core.compression import (decompress,
+                                              make_error_feedback,
+                                              quantized_values, wire_bytes)
+    from repro_torch.core.streaming import QuantSink
+
+    t = state["T"]
+    stage: dict = {}
+    msgs = {}
+    sink = QuantSink(t, device=device)
+    for cid in SILOS:
+        host = silo_delta(state, cid, stage)
+        ef = make_error_feedback(INT8_JOB, cid, device=device)
+        msgs[cid], s = host_seconds(ef.step, host)
+        stage.setdefault("quantize_zlib", []).append(s)
+        q, s = host_seconds(quantized_values, msgs[cid])
+        stage.setdefault("unzlib", []).append(s)
+        _, s = sync_seconds(sink.fold, cid, q, msgs[cid]["scales"],
+                            state["n_examples"][cid])
+        stage.setdefault("fold", []).append(s)
+    total, s = sync_seconds(sink.finalize)
+    stage["finalize"] = [s]
+    mean = (total / float(sink.total_weight)).cpu().numpy()
+    tw = sum(float(state["n_examples"][c]) for c in SILOS)
+    expect = sum(float(state["n_examples"][c])
+                 * decompress(msgs[c]).astype(np.float64)
+                 for c in SILOS) / tw
+    err = float(np.abs(mean.astype(np.float64) - expect).max())
+    check(err <= ROUND_ATOL, f"int8 mean vs f64 host sum {err:.3g}")
+    check(np.isfinite(mean).all() and mean.shape == (t,),
+          "int8 mean finite, of the packed size")
+    wire = sum(wire_bytes(m) for m in msgs.values())
+    print(f"int8 round: mean vs f64 host sum of the decompressed posts "
+          f"{err:.3g} (atol {ROUND_ATOL}); wire {wire} bytes for "
+          f"{len(SILOS)} silos ({wire / (4 * t * len(SILOS)):.3f} of fp32); "
+          f"norms {[round(v, 6) for v in sink.norms.values()]}", flush=True)
+    print_stages("int8 round", stage, card)
+
+
+def secure_int8_phase(state, device, card: str):
+    """6b: a secure int8 round (integer masks mod 2**16) through K4; the
+    decoded sum must equal the fixed-grid plain twin's, bitwise."""
+    import numpy as np
+    from repro_torch.core.compression import (compress, make_error_feedback,
+                                              quantized_values)
+    from repro_torch.core.secure_agg import int_mask_offset, \
+        mask_modulus_bits
+    from repro_torch.core.streaming import ModularSink
+
+    t = state["T"]
+    tp = t + (-t) % CHUNK
+    cohort = sorted(SILOS)
+    mbits = mask_modulus_bits(len(cohort), INT8_JOB.quant_bits)
+    check(mbits == 16, f"3 silos ride a 16-bit modulus (got {mbits})")
+    stage: dict = {}
+    msgs, twin = {}, {}
+    for cid in SILOS:
+        host = silo_delta(state, cid, stage)
+        w = state["n_examples"][cid] / float(LOCAL_STEPS * BATCH_SIZE)
+        ef = make_error_feedback(INT8_JOB, cid, device=device)
+        msgs[cid], s = sync_seconds(ef.step_masked, host, weight=w,
+                                    client_id=cid, cohort=cohort,
+                                    pair_secret=SECRET)
+        stage.setdefault("quantize_mask", []).append(s)
+        # the fixed-grid plain twin: same rounding stream, same buffer
+        twin_rng = make_error_feedback(INT8_JOB, cid).rng
+        twin[cid] = quantized_values(compress(
+            w * host, "int8", grid=ef.grid, rng=twin_rng))
+    grid = msgs[SILOS[0]]["grid"]
+    check(all(m["mbits"] == mbits and m["z"].dtype == np.uint16
+              and m["z"].shape == (tp,) for m in msgs.values()),
+          "uint16 residue streams of the padded size")
+    # the mask pass alone (it also ran inside each step_masked above)
+    _, s = sync_seconds(int_mask_offset, tp, SILOS[0], cohort, SECRET,
+                        mbits, device=device)
+    stage["int_mask_pass"] = [s]
+    sink = ModularSink(t, mbits=mbits, grid=grid, device=device)
+    for cid in SILOS:
+        _, s = sync_seconds(sink.fold, msgs[cid]["z"])
+        stage.setdefault("fold", []).append(s)
+    total, s = sync_seconds(sink.finalize)
+    stage["finalize"] = [s]
+    expect = np.float32(sum(twin[c].astype(np.int64) for c in SILOS)) \
+        * np.float32(grid)
+    got = total.cpu().numpy()
+    check(np.array_equal(got.view(np.uint32), expect.view(np.uint32)),
+          "secure int8 decode bitwise equal to the plain twin's "
+          f"float32(sum q) * grid (max diff {np.abs(got - expect).max()})")
+    print(f"secure int8 round: mbits {mbits}, grid {grid:.6g}; decoded sum "
+          f"bitwise equal to the plain twin's float32(sum q) * grid; wire "
+          f"{sum(m['z'].nbytes for m in msgs.values())} bytes", flush=True)
+    print_stages("secure int8 round", stage, card)
+    state["secure_int8"] = {"msgs": msgs, "twin": twin, "mbits": mbits,
+                            "grid": grid}
+
+
+def int_repair_phase(state, device, card: str):
+    """6c: solarx drops after masking; integer repair streamed (K4) and
+    stacked (K4 with corrections), both bitwise equal to the twin sum."""
+    import numpy as np
+    import torch
+    from repro_torch.core.secure_agg import int_repair_correction, u32_bits
+    from repro_torch.core.streaming import ModularSink
+    from repro_torch.kernels.compressed_agg.ops import masked_dequant_reduce
+
+    sec = state["secure_int8"]
+    msgs, mbits, grid = sec["msgs"], sec["mbits"], sec["grid"]
+    t = state["T"]
+    tp = t + (-t) % CHUNK
+    survivors = [c for c in SILOS if c != DROPPED]
+    corr, s_corr = sync_seconds(lambda: {
+        c: int_repair_correction(tp, c, [DROPPED], SECRET, mbits,
+                                 device=device) for c in survivors})
+
+    def streamed():
+        sink = ModularSink(t, mbits=mbits, grid=grid, device=device)
+        for c in survivors:
+            sink.fold(msgs[c]["z"])
+            sink.fold_correction(corr[c])
+        return sink.finalize()
+
+    def stacked():
+        z = torch.stack([u32_bits(msgs[c]["z"], device) for c in survivors])
+        cc = torch.stack([corr[c].view(torch.int32) for c in survivors])
+        g = torch.full((tp // CHUNK,), grid, dtype=torch.float32,
+                       device=device)
+        return masked_dequant_reduce(z, g, modulus_bits=mbits, corr=cc)[:t]
+    stream_total, s_stream = sync_seconds(streamed)
+    stack_total, s_stack = sync_seconds(stacked)
+    expect = np.float32(sum(sec["twin"][c].astype(np.int64)
+                            for c in survivors)) * np.float32(grid)
+    a, b = stream_total.cpu().numpy(), stack_total.cpu().numpy()
+    check(np.array_equal(a.view(np.uint32), b.view(np.uint32)),
+          "integer repair: streamed bitwise equal to stacked")
+    check(np.array_equal(a.view(np.uint32), expect.view(np.uint32)),
+          "integer repair: bitwise equal to the survivors' twin sum "
+          f"(max diff {np.abs(a - expect).max()})")
+    print(f"integer repair: dropped {DROPPED}; streamed and stacked "
+          f"decodes bitwise equal to each other and to the survivors' twin "
+          f"sum; corrections (int mask pass) {s_corr:.4f} s, streamed "
+          f"fold+decode {s_stream:.4f} s, stacked decode {s_stack:.4f} s "
+          f"[{card}]", flush=True)
+
+
+def combine_phase(state, device, card: str):
+    """6d: ``combine_pytrees`` over the trained params, weights 1/3 (K5)."""
+    from repro_torch import tree
+    from repro_torch.kernels.secure_agg.ops import combine_pytrees
+
+    trees = [state["trained"][c] for c in SILOS]
+    w = [1.0 / len(SILOS)] * len(SILOS)
+    agg, s = sync_seconds(combine_pytrees, trees, w, device=device)
+    mean = tree.tree_map(lambda *xs: sum(xs) / float(len(xs)), *trees)
+    max_scale = max(max(float(leaf.abs().max()) for leaf in tree.leaves(p))
+                    for p in trees) / 127.0
+    err = max(float((a - m).abs().max())
+              for a, m in zip(tree.leaves(agg), tree.leaves(mean)))
+    check(err <= max_scale,
+          f"combine_pytrees within the int8 scale: {err:.3g} > "
+          f"{max_scale:.3g}")
+    print(f"combine_pytrees: {len(tree.leaves(agg))} leaves, max err vs "
+          f"plain mean {err:.3g} (bound: largest per-client scale "
+          f"{max_scale:.3g}); {s:.4f} s [{card}]", flush=True)
+
+
+def aggregate_phase(state, device, card: str):
+    """6e: ``aggregate_packed("fedavg")`` over the trained buffers (K1)."""
+    import torch
+    from repro_torch.core.aggregation import aggregate_packed
+
+    bufs = [state["plain"][c] for c in SILOS]
+    out, s = sync_seconds(aggregate_packed, "fedavg", bufs, device=device)
+    err = float((out - torch.stack(bufs).mean(0)).abs().max())
+    check(err <= ROUND_ATOL, f"aggregate_packed vs plain mean {err:.3g}")
+    print(f"aggregate_packed fedavg: max err vs plain mean {err:.3g} (atol "
+          f"{ROUND_ATOL}); {s:.4f} s [{card}]", flush=True)
+
+
+def run_phase(name: str, peaks: list, card: str, fn, *args):
+    """Run one phase; print its seconds and peak device memory."""
+    import torch
+    torch.cuda.reset_peak_memory_stats()
+    out, s = sync_seconds(fn, *args)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    peaks.append(peak)
+    print(f"phase {name}: {s:.2f} s, peak device memory {peak:.2f} GiB "
+          f"[{card}]", flush=True)
+    return out
 
 
 def trace_phase(state, card: str):
@@ -375,6 +762,7 @@ def main() -> int:
 
     from repro_torch.configs import get_config
     from repro_torch.kernels import _build
+    from repro_torch.kernels.compressed_agg import ops as cops
     from repro_torch.kernels.secure_agg import ops
 
     t0 = time.perf_counter()
@@ -385,22 +773,51 @@ def main() -> int:
     cfg = get_config("fedforecast-100m")
     rate = hbm_rate(name)
     t_main = 116_411_136            # fedforecast-100m packed size
-    kernels = kernel_phase(device, len(SILOS), len(SILOS) - 1, t_main, card,
-                           rate)
+    peaks: list = []
+    kernels = run_phase("kernels K1/K2", peaks, card, kernel_phase, device,
+                        len(SILOS), len(SILOS) - 1, t_main, card, rate)
+    kernels += run_phase("kernels K3/K4/K5", peaks, card,
+                         compressed_kernel_phase, device, len(SILOS),
+                         len(SILOS) - 1, t_main, card, rate)
 
+    def read_path(name: str, expected):
+        """The launch counts of the path just driven; each expected
+        kernel must have launched in it."""
+        counts = {**ops.LAUNCHES, **cops.LAUNCHES}
+        for k in expected:
+            check(counts[k] > 0, f"{k} launched on the {name} path")
+        print(f"{name} path: launches {counts}", flush=True)
+        return counts
+
+    # the main path: slice 1's fp32 secure round and repair, then slice 2's
+    # compressed planes on the same trained silos; the counts are set to 0
+    # just before each and read just after it
     torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
+    peaks.clear()
     ops.reset_launches()
-    state = round_phase(cfg, device, card)
+    cops.reset_launches()
+    state = run_phase("round", peaks, card, round_phase, cfg, device, card)
     check(state["T"] == t_main, f"packed size {state['T']} == {t_main}")
-    check(ops.LAUNCHES["masked_sum"] > 0, "K1 launched in the round")
-    repair_phase(state, device, card)
-    launches = dict(ops.LAUNCHES)
-    check(launches["masked_sum_corrected"] > 0, "K2 launched in the repair")
+    run_phase("repair", peaks, card, repair_phase, state, device, card)
+    fp32 = read_path("fp32 secure", ("masked_sum", "masked_sum_corrected"))
+    ops.reset_launches()
+    cops.reset_launches()
+    for what, fn in (("int8 round", int8_phase),
+                     ("secure int8 round", secure_int8_phase),
+                     ("integer repair", int_repair_phase),
+                     ("combine_pytrees", combine_phase),
+                     ("aggregate_packed", aggregate_phase)):
+        run_phase(what, peaks, card, fn, state, device, card)
+    compressed = read_path("compressed", (
+        "dequant_reduce", "masked_dequant_reduce",
+        "masked_dequant_reduce_corrected", "secure_agg_combine",
+        "masked_sum"))
+    launches = {k: fp32[k] + compressed[k] for k in fp32}
+    for k in kernels:
+        check(launches[k["name"]] > 0, f"{k['name']} launched on the path")
     print(f"main path: launches {launches}; peak device memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]",
-          flush=True)
-    trace_phase(state, card)
+          f"{max(peaks):.2f} GiB [{card}]", flush=True)
+    run_phase("trace", peaks, card, trace_phase, state, card)
 
     for k in kernels:
         k["launches"] = launches[k["name"]]

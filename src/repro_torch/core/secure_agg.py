@@ -1,4 +1,5 @@
-"""Secure aggregation via pairwise additive masking — the fp32 plane.
+"""Secure aggregation via pairwise additive masking: the fp32 and the
+integer planes.
 
 Port of ``repro.core.secure_agg``: every pair of clients (i, j) derives a
 shared mask stream from a pairwise secret; the lexicographically smaller
@@ -30,12 +31,20 @@ it outside any Pallas kernel too. ``prg="threefry"`` (the reference's
 Dropout repair: survivors re-derive their summed masks toward the dropped
 peers (``repair_correction``) and the server subtracts them in the combine
 (K2, ``aggregate_masked_packed(corrections=...)``).
+
+The integer plane (``int_mask_offset``, ``int_repair_correction``) draws
+residues mod 2**mbits from the same keyed stream under a domain-separated
+secret. Its uint32 arithmetic runs in int64 masked back to 32 bits after
+each add; results are returned as ``torch.uint32`` tensors, made by an
+exact int64 -> int32 step and a dtype view, so no uint32 arithmetic or
+cast kernel is needed on either device.
 """
 from __future__ import annotations
 
 import hashlib
 from typing import Optional, Sequence
 
+import numpy as np
 import torch
 
 from repro_torch.core.packing import as_f32, as_matrix
@@ -174,3 +183,88 @@ def repair_correction(size: int, client_id: str, dropped: Sequence[str],
     return mask_packed(torch.zeros(size, dtype=torch.float32, device=dev),
                        client_id, [client_id, *dropped], pair_secret, scale,
                        prg, device=dev)
+
+
+# ---------------------------------------------------------------------------
+# integer-domain masking (the composable-privacy plane): residues mod
+# M = 2**mbits added to the widened quantized stream cancel bit-exactly
+# under the server's uint32 wrap-around sum, because M divides 2**32.
+# ---------------------------------------------------------------------------
+INT_MASK_DOMAIN = b"/intmask"
+
+
+def mask_modulus_bits(cohort_size: int, quant_bits: int = 8) -> int:
+    """Shared mask-modulus width (16 or 32): centered decoding of the
+    cohort's modular sum needs ``M > 4*N*qmax`` (qmax plus an equal DP
+    headroom, per client)."""
+    qmax = (1 << (int(quant_bits) - 1)) - 1
+    span = 4 * max(1, int(cohort_size)) * qmax
+    return 16 if span < (1 << 16) else 32
+
+
+def u32_from_i64(x: torch.Tensor) -> torch.Tensor:
+    """int64 values in [0, 2**32) -> a ``torch.uint32`` tensor: an exact
+    step to the int32 bit pattern, then a dtype view."""
+    return (x - ((x >> 31) << 32)).to(torch.int32).view(torch.uint32)
+
+
+def u32_bits(z, device=None) -> torch.Tensor:
+    """A residue stream — a wire array (uint16 or uint32) or a uint32 or
+    int32 tensor — as an int32 tensor of its 32-bit pattern on ``device``
+    (default: where it lies)."""
+    if isinstance(z, np.ndarray):
+        if z.dtype == np.uint16:      # ship 2 bytes a value, widen there
+            t = torch.from_numpy(np.ascontiguousarray(z).view(np.int16))
+            return t.to(device or t.device).to(torch.int32) & 0xFFFF
+        z = torch.from_numpy(np.ascontiguousarray(z, np.uint32)
+                             .view(np.int32))
+    if z.dtype not in (torch.uint32, torch.int32):
+        raise TypeError(f"not a residue stream dtype: {z.dtype}")
+    return z.to(device or z.device).view(torch.int32)
+
+
+def u32_to_i64(bits: torch.Tensor) -> torch.Tensor:
+    """32-bit storage (int32 or uint32) -> int64 in [0, 2**32)."""
+    return bits.view(torch.int32).to(torch.int64) & _M32
+
+
+def _int_masks(keys: torch.Tensor, signs: torch.Tensor, *, size: int,
+               modulus_bits: int, device: torch.device) -> torch.Tensor:
+    """Summed signed pairwise residues mod 2**modulus_bits, int64 holding
+    uint32 values. Per pair: the keyed lowbias32 stream masked to
+    ``modulus_bits`` bits, added as is (sign +1) or as ``(0 - r) & (M-1)``,
+    ``-r mod M`` (sign -1); the sum wraps mod 2**32 after each add."""
+    maskval = (1 << int(modulus_bits)) - 1
+    idx = torch.arange(size, dtype=torch.int64, device=device)
+    acc = torch.zeros(size, dtype=torch.int64, device=device)
+    for (k0, k1), sign in zip(keys.tolist(), signs.tolist()):
+        bits = _pair_bits(idx, k0, k1) & maskval
+        if sign < 0:
+            bits = (-bits) & maskval
+        acc = (acc + bits) & _M32
+    return acc
+
+
+def int_mask_offset(size: int, client_id: str, cohort: Sequence[str],
+                    pair_secret: bytes, modulus_bits: int, *,
+                    device=DEFAULT_DEVICE) -> torch.Tensor:
+    """This client's total mask offset for a (size,) integer stream, a
+    ``torch.uint32`` tensor on ``device``. Over the full cohort the
+    offsets sum to 0 mod 2**modulus_bits."""
+    dev = resolve(device)
+    keys, signs = pair_keys(client_id, cohort,
+                            pair_secret + INT_MASK_DOMAIN)
+    acc = _int_masks(keys, signs, size=int(size),
+                     modulus_bits=int(modulus_bits), device=dev)
+    return u32_from_i64(acc)
+
+
+def int_repair_correction(size: int, client_id: str,
+                          dropped: Sequence[str], pair_secret: bytes,
+                          modulus_bits: int, *,
+                          device=DEFAULT_DEVICE) -> torch.Tensor:
+    """Integer twin of ``repair_correction``: this survivor's summed
+    residues against the dropped peers, mod 2**modulus_bits. The server
+    subtracts it (mod M) before decoding."""
+    return int_mask_offset(size, client_id, [client_id, *dropped],
+                           pair_secret, modulus_bits, device=device)

@@ -1,26 +1,46 @@
-"""Streaming, O(T) server-side aggregation of the fp32 secure plane.
+"""Streaming, O(T) server-side aggregation sinks.
 
-Port of ``repro.core.streaming``'s ``MaskedF32Sink`` and
-``stream_masked_packed``. The sink holds one (T,) fp32 accumulator on its
-device; every ``batch`` staged buffers are stacked into one contiguous
-(B, T) slab, reduced through K1 (``masked_sum``) and added into the
-accumulator, so steady-state memory is O(T + B*T) whatever the cohort
-size. Repair corrections fold as negative-weight rows.
+Port of ``repro.core.streaming``. Each sink holds its accumulator on its
+device and folds staged updates in bounded batches, so steady-state
+memory is O(T + B*T) whatever the cohort size:
+
+* ``MaskedF32Sink`` — the fp32 secure plane: every ``batch`` staged
+  buffers are stacked into one contiguous (B, T) slab, reduced through K1
+  (``masked_sum``) and added into a (T,) f32 accumulator. Repair
+  corrections fold as negative-weight rows.
+* ``ModularSink`` — the masked-quantized integer plane. The accumulator
+  is an int64 tensor holding the uint32 wrap-around sum of the residue
+  streams: each staged row (kept as its 32-bit pattern in int32) is
+  widened to int64, added or subtracted, and the sum is masked back to
+  32 bits after each row, which is exactly uint32 arithmetic. The fold is
+  plain PyTorch (the reference's is outside Pallas too) and bit-exact
+  under any arrival order. ``finalize`` hands K4 the (1, T') 32-bit
+  pattern of the accumulator. It costs 8 bytes a column where the
+  reference's uint32 accumulator costs 4.
+* ``QuantSink`` — the plain int8 plane: batches fold through K3
+  (``dequant_reduce``) weighted by raw example counts; per-client norms
+  come from the int8 rows on the host in f64, as in the reference.
+* ``TopkSink`` — sparse (index, value) adds into a (T,) f32 accumulator.
 
 Not ported yet: the mesh (T split across devices, ``sharding/agg.py``)
-and the telemetry spans, which come with the control plane. The sink
-keeps ``fold_batches`` and ``peak_bytes``.
+and the telemetry spans, which come with the control plane. The sinks
+keep ``fold_batches`` and ``peak_bytes``.
 """
 from __future__ import annotations
 
-from typing import Iterable, Optional, Sequence
+from typing import Dict, Iterable, Optional, Sequence
 
 import numpy as np
 import torch
 
 from repro_torch.core.packing import as_f32
+from repro_torch.core.secure_agg import u32_bits, u32_from_i64, u32_to_i64
 from repro_torch.device import DEFAULT_DEVICE, resolve
+from repro_torch.kernels.compressed_agg.ops import (CHUNK, dequant_reduce,
+                                                    masked_dequant_reduce)
 from repro_torch.kernels.secure_agg.ops import masked_sum
+
+_M32 = 0xFFFFFFFF
 
 DEFAULT_STREAM_BATCH = 8
 
@@ -139,6 +159,275 @@ class MaskedF32Sink(_SinkBase):
             return torch.zeros(self.t, dtype=torch.float32,
                                device=self.device)
         return self._acc
+
+
+class ModularSink(_SinkBase):
+    """Streaming twin of ``compression.reduce_masked``: folds residue
+    streams mod M = 2**mbits with wrap-around adds (bit-exact under any
+    fold order), subtracts integer repair corrections mod M, and decodes
+    once through K4 (``masked_dequant_reduce``) at finalize."""
+
+    plane = "masked_int"
+
+    def __init__(self, t: int, *, mbits: int, grid: float, **kw):
+        super().__init__(t, **kw)
+        self.mbits = int(mbits)
+        self.grid = float(grid)
+        self.tp = t + (-t) % CHUNK   # decode needs CHUNK-aligned columns
+        self._acc = torch.zeros(self.tp, dtype=torch.int64,
+                                device=self.device)
+
+    @property
+    def accumulator_bytes(self) -> int:
+        return 8 * self.tp
+
+    def _pad(self, z) -> torch.Tensor:
+        """A wire stream (length t or the CHUNK-padded tp, uint16 or
+        uint32) as a (tp,) int32 bit-pattern tensor on the sink's
+        device."""
+        z = u32_bits(z, self.device).reshape(-1)
+        if z.shape[0] not in (self.t, self.tp):
+            raise ValueError(
+                f"residue stream size {z.shape[0]} != sink size {self.t}")
+        if z.shape[0] != self.tp:
+            z = torch.nn.functional.pad(z, (0, self.tp - z.shape[0]))
+        return z
+
+    def fold(self, z):
+        self._stage((self._pad(z), False))
+        self.n_folded += 1
+
+    def unfold(self, z):
+        self._stage((self._pad(z), True))
+        self.n_folded -= 1
+
+    def fold_correction(self, z):
+        """Modular subtraction of a survivor's integer repair stream."""
+        self._stage((self._pad(z), True))
+
+    def unfold_correction(self, z):
+        """Modular re-add of a correction that became stale."""
+        self._stage((self._pad(z), False))
+
+    def _row_bytes(self, item) -> int:
+        return item[0].numel() * 4
+
+    def _reduce(self, staged):
+        for z, subtract in staged:
+            row = u32_to_i64(z)
+            if subtract:
+                self._acc.sub_(row)
+            else:
+                self._acc.add_(row)
+            self._acc.bitwise_and_(_M32)
+
+    def finalize(self) -> torch.Tensor:
+        """Flush; the (t,) f32 decoded cohort sum on the sink's device."""
+        self._flush()
+        self._finalized = True
+        scales = torch.full((self.tp // CHUNK,), self.grid,
+                            dtype=torch.float32, device=self.device)
+        z = u32_from_i64(self._acc).reshape(1, self.tp)
+        return masked_dequant_reduce(z, scales,
+                                     modulus_bits=self.mbits)[:self.t]
+
+
+class QuantSink(_SinkBase):
+    """Streaming twin of the int8 branch of ``compression.
+    reduce_compressed``: folds (q, scales) wire pairs weighted by raw
+    example counts through K3; ``finalize()`` returns the weighted *sum*
+    (divide by ``total_weight`` for the mean), ``norms`` the per-client
+    l2 norms."""
+
+    plane = "compressed_int8"
+
+    def __init__(self, t: int, **kw):
+        super().__init__(t, **kw)
+        self.tp = t + (-t) % CHUNK
+        self._acc: Optional[torch.Tensor] = None
+        self.total_weight = 0.0
+        self.norms: Dict[str, float] = {}
+
+    @property
+    def accumulator_bytes(self) -> int:
+        return 4 * self.tp
+
+    def fold(self, cid: str, q, scales, weight: float):
+        """Stage one client's decoded int8 wire stream with its per-chunk
+        scales and weight; both go to the sink's device."""
+        q = np.asarray(q, np.int8).reshape(-1)
+        if q.shape[0] != self.t:
+            raise ValueError(
+                f"quantized stream size {q.shape[0]} != sink size {self.t}")
+        if self.tp != self.t:
+            q = np.pad(q, (0, self.tp - self.t))
+        scales = np.asarray(scales, np.float32).reshape(-1)
+        # ||deq||^2 from per-chunk energies of the int8 row, on the host
+        # in f64 as the reference computes it (f32 squares are exact:
+        # |q| <= 127 keeps a chunk's squared sum < 2**24)
+        qsq = (q.astype(np.float32) ** 2).reshape(-1, CHUNK).sum(
+            -1, dtype=np.float64)
+        self.norms[cid] = float(
+            np.sqrt((qsq * scales.astype(np.float64) ** 2).sum()))
+        self._stage((torch.from_numpy(q).to(self.device),
+                     torch.from_numpy(scales).to(self.device),
+                     float(weight)))
+        self.total_weight += float(weight)
+        self.n_folded += 1 if weight > 0 else -1
+
+    def unfold(self, cid: str, q, scales, weight: float):
+        self.fold(cid, q, scales, -weight)
+        self.norms.pop(cid, None)
+
+    def _row_bytes(self, item) -> int:
+        return item[0].numel() + item[1].numel() * 4
+
+    def _reduce(self, staged):
+        q = torch.stack([s[0] for s in staged])          # (B, tp) int8
+        scales = torch.stack([s[1] for s in staged])
+        ws = torch.tensor([s[2] for s in staged], dtype=torch.float32,
+                          device=self.device)
+        s = dequant_reduce(q, scales, ws)
+        if self._acc is None:
+            self._acc = s
+        else:
+            self._acc.add_(s)
+
+    def finalize(self) -> torch.Tensor:
+        self._flush()
+        self._finalized = True
+        if self._acc is None:
+            return torch.zeros(self.t, dtype=torch.float32,
+                               device=self.device)
+        return self._acc[:self.t]
+
+
+class TopkSink:
+    """Sparse top-k accumulator: weighted (index, value) adds into a (T,)
+    f32 tensor on ``device`` (a message's indices are unique)."""
+
+    plane = "compressed_topk"
+
+    def __init__(self, t: int, *, device=DEFAULT_DEVICE, **_kw):
+        self.t = int(t)
+        self.device = resolve(device)
+        self._acc = torch.zeros(self.t, dtype=torch.float32,
+                                device=self.device)
+        self.total_weight = 0.0
+        self.norms: Dict[str, float] = {}
+        self.n_folded = 0
+        self.fold_batches = 0
+        self.peak_bytes = 4 * self.t
+
+    @property
+    def accumulator_bytes(self) -> int:
+        return 4 * self.t
+
+    def fold(self, cid: str, idx, val, weight: float):
+        val = torch.as_tensor(val, dtype=torch.float32).to(self.device)
+        idx = torch.as_tensor(idx).to(self.device, torch.int64)
+        self._acc[idx] += torch.tensor(weight, dtype=torch.float32) * val
+        self.norms[cid] = float(torch.linalg.vector_norm(
+            val.to(torch.float64)))
+        self.total_weight += float(weight)
+        self.n_folded += 1
+        self.fold_batches += 1
+
+    def unfold(self, cid: str, idx, val, weight: float):
+        self.fold(cid, idx, val, -weight)
+        self.norms.pop(cid, None)
+        self.n_folded -= 2           # the fold() above counted +1; net -1
+
+    def finalize(self) -> torch.Tensor:
+        return self._acc
+
+
+def _masked_contract(m: dict, expect: Optional[tuple]) -> tuple:
+    got = (int(m["size"]), int(m["mbits"]), float(m["grid"]))
+    if m.get("scheme") != "masked_int8":
+        raise ValueError("reduce_masked needs masked_int8 wire dicts")
+    if expect is not None and got != expect:
+        raise ValueError(
+            "masked updates disagree on the shared coding contract "
+            "(size / mask modulus / quantization grid)")
+    return got
+
+
+def stream_reduce_masked(msgs: Iterable[dict], *, corrections=None,
+                         batch: int = DEFAULT_STREAM_BATCH,
+                         device=DEFAULT_DEVICE) -> torch.Tensor:
+    """Streaming ``compression.reduce_masked``: contract checks, then the
+    (T,) f32 decoded sum, bit-exact whatever the order. ``corrections``
+    is an iterable aligned with ``msgs`` (or None)."""
+    dev = resolve(device)
+    sink = None
+    contract = None
+    corr_iter = iter(corrections) if corrections is not None else None
+    n = 0
+    for m in msgs:
+        contract = _masked_contract(m, contract)
+        if sink is None:
+            t, mbits, grid = contract
+            sink = ModularSink(t, mbits=mbits, grid=grid, batch=batch,
+                               device=dev)
+        sink.fold(m["z"])
+        if corr_iter is not None:
+            try:
+                sink.fold_correction(next(corr_iter))
+            except StopIteration:
+                raise ValueError(
+                    "repair corrections do not match the masked stream "
+                    "count") from None
+        n += 1
+    if sink is None:
+        raise ValueError("no masked updates to reduce")
+    if corr_iter is not None:
+        leftover = sum(1 for _ in corr_iter)
+        if leftover:
+            raise ValueError(
+                f"{leftover} repair corrections do not match the masked "
+                f"stream count {n}")
+    return sink.finalize()
+
+
+def stream_reduce_compressed(msgs: Iterable[dict], weights, *,
+                             return_norms: bool = False,
+                             batch: int = DEFAULT_STREAM_BATCH,
+                             device=DEFAULT_DEVICE):
+    """Streaming ``compression.reduce_compressed``: weights are used as
+    given, norms ride along per fold; ``weights`` is indexable and
+    aligned with the iteration order of ``msgs``."""
+    from repro_torch.core.compression import quantized_values
+    dev = resolve(device)
+    sink = None
+    w = np.asarray(weights, np.float32)
+    t = None
+    scheme = None
+    i = 0
+    for m in msgs:
+        if scheme is None:
+            scheme, t = m["scheme"], int(m["size"])
+        if m["scheme"] != scheme:
+            raise ValueError(
+                f"mixed compression schemes in one cohort: "
+                f"{sorted({scheme, m['scheme']})}")
+        if int(m["size"]) != t:
+            raise ValueError("compressed updates disagree on buffer size")
+        if scheme == "topk":
+            if sink is None:
+                sink = TopkSink(t, device=dev)
+            sink.fold(str(i), m["idx"], m["val"], w[i])
+        else:
+            if sink is None:
+                sink = QuantSink(t, batch=batch, device=dev)
+            sink.fold(str(i), quantized_values(m), m["scales"], w[i])
+        i += 1
+    if sink is None:
+        raise ValueError("no compressed updates to reduce")
+    out = sink.finalize()
+    if not return_norms:
+        return out
+    return out, [sink.norms[str(j)] for j in range(i)]
 
 
 def stream_masked_packed(buffers: Iterable, weights: Optional[Sequence]

@@ -1,2 +1,3 @@
 from repro_torch.kernels.secure_agg.ops import (  # noqa: F401
-    LAUNCHES, masked_sum, masked_sum_corrected)
+    LAUNCHES, combine_pytrees, masked_sum, masked_sum_corrected,
+    secure_agg_combine)

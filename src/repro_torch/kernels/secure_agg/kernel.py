@@ -2,9 +2,10 @@
 
 K1 ``masked_sum_flat`` replaces ``repro/kernels/secure_agg/kernel.py::
 masked_sum_flat``; K2 ``masked_sum_corrected_flat`` replaces
-``masked_sum_corrected_flat`` there. Both are bound by bytes: (N+1)*T*4
-(K1) and (2N+1)*T*4 (K2) over the card's HBM rate. The source note in the
-``.cu`` file explains the design.
+``masked_sum_corrected_flat`` there, and K5 ``secure_agg_combine_flat``
+replaces ``secure_agg_combine_flat``. All are bound by bytes: (N+1)*T*4
+(K1), (2N+1)*T*4 (K2) and N*T + 4*T (K5) over the card's HBM rate. The
+source note in the ``.cu`` file explains the design.
 
 These functions launch on the tensors' current CUDA stream, do not
 synchronise, and assume the caller (``ops.py``) has checked device, dtype,
@@ -32,6 +33,10 @@ def _lib() -> ctypes.CDLL:
     lib.masked_sum_corrected_f32.argtypes = [
         _P, _P, _P, _P, ctypes.c_int, ctypes.c_longlong, ctypes.c_int, _P]
     lib.masked_sum_corrected_f32.restype = ctypes.c_int
+    lib.secure_agg_combine_f32.argtypes = [_P, _P, _P, ctypes.c_int,
+                                           ctypes.c_longlong, ctypes.c_int,
+                                           _P]
+    lib.secure_agg_combine_f32.restype = ctypes.c_int
     return lib
 
 
@@ -62,4 +67,16 @@ def masked_sum_corrected_flat(x: torch.Tensor, c: torch.Tensor,
     _check(_lib().masked_sum_corrected_f32(
         x.data_ptr(), c.data_ptr(), w.data_ptr(), out.data_ptr(), n, t,
         x.device.index, _stream(x.device)), "masked_sum_corrected")
+    return out
+
+
+def secure_agg_combine_flat(q: torch.Tensor, ws: torch.Tensor,
+                            out: torch.Tensor) -> torch.Tensor:
+    """K5: out = sum_i ws_i * float(q_i). q (N, T) int8, ws (N,) f32 (the
+    weights times the per-client scales), out (T,) f32."""
+    n, t = q.shape
+    _check(_lib().secure_agg_combine_f32(q.data_ptr(), ws.data_ptr(),
+                                         out.data_ptr(), n, t,
+                                         q.device.index, _stream(q.device)),
+           "secure_agg_combine")
     return out

@@ -60,16 +60,43 @@ def test_entry_points_need_cuda_unless_asked_for_cpu():
     if torch.cuda.is_available():
         pytest.skip("this host has CUDA: the default device is valid here")
     from repro_torch.convert import params_from_numpy
+    from repro_torch.core.aggregation import aggregate, aggregate_packed
+    from repro_torch.core.compression import (ErrorFeedback, compress,
+                                              masked_compress,
+                                              reduce_compressed,
+                                              reduce_masked)
     from repro_torch.core.secure_agg import (aggregate_masked_packed,
+                                             int_mask_offset,
+                                             int_repair_correction,
                                              mask_packed, repair_correction)
-    from repro_torch.core.streaming import MaskedF32Sink
+    from repro_torch.core.streaming import (MaskedF32Sink, ModularSink,
+                                            QuantSink, TopkSink)
+    from repro_torch.kernels.secure_agg.ops import combine_pytrees
     from repro_torch.models import build_model
+    zeros = np.zeros(4, np.float32)
+    tree = {"w": zeros}
+    msg = compress(zeros, "int8")
+    masked, _ = masked_compress(zeros, grid=0.01, client_id="a",
+                                cohort=["a"], pair_secret=b"s", device="cpu")
+    ef = ErrorFeedback("int8")
     calls = [
         lambda: build_model("fedforecast-100m"),
         lambda: MaskedF32Sink(16),
-        lambda: mask_packed(np.zeros(4, np.float32), "a", ["a", "b"], b"s"),
+        lambda: ModularSink(16, mbits=16, grid=0.01),
+        lambda: QuantSink(16),
+        lambda: TopkSink(16),
+        lambda: mask_packed(zeros, "a", ["a", "b"], b"s"),
         lambda: repair_correction(4, "a", ["b"], b"s"),
-        lambda: aggregate_masked_packed([np.zeros(4, np.float32)]),
+        lambda: int_mask_offset(4, "a", ["a", "b"], b"s", 16),
+        lambda: int_repair_correction(4, "a", ["b"], b"s", 16),
+        lambda: aggregate_masked_packed([zeros]),
+        lambda: combine_pytrees([tree, tree], [0.5, 0.5]),
+        lambda: aggregate_packed("fedavg", [zeros, zeros]),
+        lambda: aggregate("fedavg", [tree, tree]),
+        lambda: reduce_masked([masked]),
+        lambda: reduce_compressed([msg], [1.0]),
+        lambda: ef.step_masked(zeros, weight=1.0, client_id="a",
+                               cohort=["a", "b"], pair_secret=b"s"),
         lambda: params_from_numpy({"w": np.zeros(2, np.float32)}),
     ]
     for call in calls:
@@ -78,11 +105,19 @@ def test_entry_points_need_cuda_unless_asked_for_cpu():
     # asking for the CPU works
     assert build_model("fedforecast-100m", device="cpu").device.type == "cpu"
     assert MaskedF32Sink(16, device="cpu").device.type == "cpu"
+    assert ModularSink(16, mbits=16, grid=0.1, device="cpu").device.type \
+        == "cpu"
+    assert reduce_masked([masked], device="cpu").device.type == "cpu"
+    assert reduce_compressed([msg], [1.0], device="cpu").shape == (4,)
+    assert aggregate_packed("fedavg", [zeros], device="cpu").shape == (4,)
 
 
 def test_kernel_build_is_not_triggered_by_import():
     from repro_torch.kernels import _build
+    from repro_torch.kernels.compressed_agg import kernel as ckernel
     from repro_torch.kernels.secure_agg import kernel
     assert kernel._lib.cache_info().currsize == 0
-    assert [p.name for p in _build.sources()] == ["secure_agg.cu"]
+    assert ckernel._lib.cache_info().currsize == 0
+    assert [p.name for p in _build.sources()] == ["compressed_agg.cu",
+                                                  "secure_agg.cu"]
     assert "sm_90a" in " ".join(_build.NVCC_FLAGS)

@@ -143,4 +143,5 @@ def test_masks_cancel_to_plain_mean(rounds, rnd):
 
 
 def test_cpu_round_launches_no_kernel(rounds):
-    assert ops.LAUNCHES == {"masked_sum": 0, "masked_sum_corrected": 0}
+    assert {"masked_sum", "masked_sum_corrected"} <= set(ops.LAUNCHES)
+    assert set(ops.LAUNCHES.values()) == {0}
