@@ -45,16 +45,34 @@ Phases (every failed check exits non-zero):
       within 1e-6 of the plain mean.
 7. Trace: one more train step under ``torch.profiler``; prints the card's
    busy time against the untraced step time (the device idle share).
+8. Serving ``hymba-1.5b`` at full width (32 layers, d_model 1600, 25
+   heads over 5 kv heads, 50 SSD heads, 128 meta tokens, bf16, random
+   init from a seed) through ``repro_torch.launch.serve``: batch 4, a
+   1920-token prompt (a 2048-position stream, so the 1024 windows cut),
+   one prefill with K6 and K7 in every layer, then 31 decode steps from
+   the ring cache and the SSM state. Prints prefill and decode times and
+   rates and the sample continuation. Checks: the prefill logits against
+   an ``impl="xla"`` twin on the same params, and prefill(S + 1) against
+   prefill(S) + ``decode_step``: in f32 (the weights widened) at rtol =
+   atol = 1e-3; in bf16 the kernel path's drift from the f32 plain path
+   at most 1.5x the bf16 plain path's. Then one prefill and one decode
+   step under ``torch.profiler``: a device idle share line each.
 
 Phase 3 also holds K3 ``dequant_reduce``, K4 ``masked_dequant_reduce``
 (with and without corrections) and K5 ``secure_agg_combine`` against
 their plain versions at small shapes and at the round's shapes: K3 and
-K5 within 1e-5, K4 bitwise; two launches must agree bitwise.
+K5 within 1e-5, K4 bitwise; and K6 ``flash_attention`` at the
+``FLASH_CASES`` shapes (f32 2e-5, bf16 2e-2, a ragged S included) and the
+serve shape with window 1024 and 0, K7 ``ssd_scan`` at the ``SSD_CASES``
+shapes and the serve shape (2e-4), with K6's library yardstick
+``F.scaled_dot_product_attention`` timed beside it (never on the path).
+Two launches must agree bitwise.
 
 Launch counters are reset before phase 4 and read after phase 5 (K1 and
-K2 must have run), then reset again before phase 6a and read after 6e
-(K3, K4 in both variants, K5 and K1 must have run); the kernels line
-gives the sum of both paths. Each phase
+K2 must have run), reset again before phase 6a and read after 6e (K3, K4
+in both variants, K5 and K1 must have run), and reset before phase 8's
+timed serve run and read after it (K6 and K7 once a layer); the kernels
+line gives the sum of the three paths. Each phase
 prints its seconds and peak device memory. The line before the last is
 the ``kernels`` JSON record; the last line is the device record.
 """
@@ -90,10 +108,51 @@ REPS = 20
 INT8_JOB = SimpleNamespace(compression="int8", compression_ratio=0.1,
                            quant_bits=8, quant_range=0.0)
 
+# slice 3: K6/K7 shapes (copies of tests/test_kernels.py's sweeps) and the
+# serve phase, hymba-1.5b at full width: a 1920-token prompt behind the 128
+# meta tokens makes a 2048-position stream, so the 1024 windows really cut
+FLASH_CASES = [
+    # B, S, H, Hkv, D, causal, window, softcap
+    (2, 256, 4, 2, 64, True, 0, 0.0),
+    (1, 256, 4, 4, 64, True, 64, 50.0),
+    (2, 128, 8, 2, 32, False, 0, 0.0),
+    (1, 512, 2, 1, 64, True, 128, 0.0),
+    (1, 384, 6, 3, 128, True, 0, 30.0),
+    (2, 200, 6, 2, 64, True, 64, 0.0),        # ragged S
+]
+FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+# K6's bf16 store against the f32 plain version on the widened inputs: a
+# round to nearest is off by at most half a bf16 ulp, 2^-8 of the value,
+# plus twice the f32 tolerance; a truncating store or a biased widening
+# is off by up to a whole ulp and fails
+BF16_HALF_ULP = 2.0 ** -8
+SSD_CASES = [
+    # b, S, H, P, N, chunk
+    (2, 64, 4, 8, 16, 16),
+    (1, 128, 2, 16, 8, 32),
+    (2, 96, 3, 8, 4, 32),
+    (1, 80, 2, 8, 16, 32),
+]
+# K7 against its plain chunked form, f32 both: sums over at most Q terms
+# and a chain of S/Q chunk states in another order; the SSD sweep's bar
+SSD_TOL = 2e-4
+SERVE_ARCH = "hymba-1.5b"
+SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 1920, 32
+# prefill logits, kernel path vs the plain twin and vs prefill + decode,
+# in f32 on the served weights widened: both sides f32, sums in other
+# orders (tighter than the reference's bf16 rule of 2e-2,
+# tests/test_decode_consistency.py:47). In the served bf16 every path,
+# the plain one too, drifts from the f32 computation by rounding that 32
+# layers amplify, past 2e-2; there the kernel path may drift at most
+# SERVE_BF16_RATIO times as far as the plain path does
+SERVE_F32_TOL = 1e-3
+SERVE_BF16_RATIO = 1.5
+
 # HBM rate (bytes/s) by card, from the published data sheets
 HBM_RATE = (("H100 PCIe", 2.0e12), ("H100 NVL", 3.9e12), ("H200", 4.8e12),
             ("H100", 3.35e12))
 FP32_RATE = 67e12            # H100 SXM fp32 outside the tensor cores
+BF16_RATE = 989e12           # H100 SXM bf16 tensor cores, dense
 
 
 def check(ok: bool, what: str):
@@ -135,13 +194,14 @@ def sync_seconds(fn, *args, **kw):
     return out, time.perf_counter() - t0
 
 
-def bound_of(nbytes: int, nops: int, rate: float):
+def bound_of(nbytes: int, nops: int, rate: float,
+             op_rate: float = FP32_RATE):
     """(bound ms, 'bytes' or 'operations'): the larger of bytes over the
-    HBM rate and operations over the fp32 CUDA-core rate (integer ops are
-    counted at the fp32 rate too; the published table has no int32 rate
-    outside the tensor cores)."""
+    HBM rate and operations over ``op_rate``, by default the fp32
+    CUDA-core rate (integer ops are counted at the fp32 rate too; the
+    published table has no int32 rate outside the tensor cores)."""
     by_bytes = nbytes / rate * 1e3
-    by_ops = nops / FP32_RATE * 1e3
+    by_ops = nops / op_rate * 1e3
     return (max(by_bytes, by_ops),
             "bytes" if by_bytes >= by_ops else "operations")
 
@@ -359,6 +419,167 @@ def compressed_kernel_phase(device, n_main: int, n_repair: int, t_main: int,
         print_kernel(k, nbytes, card)
         rows.append(k)
     return rows
+
+
+def attention_kernel_phase(device, card: str, rate: float):
+    """K6 flash attention and K7 the SSD scan against their plain
+    versions on the card, at the sweeps' shapes and at the serve path's;
+    their times, bounds and (K6) the library call's time."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.flash_attention import ref as fref
+    from repro_torch.kernels.ssd_scan import ops as sops
+    from repro_torch.kernels.ssd_scan import ref as sref
+
+    gen = torch.Generator(device=device).manual_seed(6789)
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(*shape, generator=gen, device=device).to(dtype)
+
+    err = {"flash_attention": 0.0, "ssd_scan": 0.0, "bf16_half_ulp": 0.0}
+
+    def plain_attention(q, k, v, causal, window, cap):
+        return fref.attention_ref(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            scale=q.shape[-1] ** -0.5, causal=causal, window=window,
+            softcap=cap).transpose(1, 2)
+
+    def k6(q, k, v, causal, window, cap, tol):
+        a = fops.flash_attention(q, k, v, causal=causal, window=window,
+                                 logit_softcap=cap)
+        b = fops.flash_attention(q, k, v, causal=causal, window=window,
+                                 logit_softcap=cap)
+        check(torch.equal(a, b), f"K6 repeat bitwise at {tuple(q.shape)}")
+        p = plain_attention(q, k, v, causal, window, cap)
+        d = (a.float() - p.float()).abs()
+        ok = bool((d <= tol + tol * p.float().abs()).all())
+        e = float(d.max())
+        check(ok, f"K6 matches plain at {tuple(q.shape)} {q.dtype} window "
+              f"{window}: max err {e:.3g} (tol {tol})")
+        err["flash_attention"] = max(err["flash_attention"], e)
+        if q.dtype == torch.bfloat16:
+            p32 = plain_attention(q.float(), k.float(), v.float(), causal,
+                                  window, cap)
+            t32 = 2 * FLASH_TOL["float32"]
+            used = float(((a.float() - p32).abs() / (
+                BF16_HALF_ULP * p32.abs() + t32 + t32 * p32.abs())).max())
+            check(used <= 1.0, f"K6 bf16 store within half an ulp of the f32 "
+                  f"plain version at {tuple(q.shape)} window {window}: "
+                  f"{used:.3f} of the limit")
+            err["bf16_half_ulp"] = max(err["bf16_half_ulp"], used)
+        return e
+
+    for B, S, H, Hkv, D, causal, window, cap in FLASH_CASES:
+        for name, tol in FLASH_TOL.items():
+            dt = getattr(torch, name)
+            k6(randn(B, S, H, D, dtype=dt), randn(B, S, Hkv, D, dtype=dt),
+               randn(B, S, Hkv, D, dtype=dt), causal, window, cap, tol)
+    print(f"kernels: K6 matches plain at {len(FLASH_CASES)} shapes x "
+          f"{{f32, bf16}} (max err {err['flash_attention']:.3g}; tol "
+          f"{FLASH_TOL}); bf16 store vs f32 plain at most "
+          f"{err['bf16_half_ulp']:.3f} of its half-ulp limit", flush=True)
+
+    def ssd_inputs(b, S, H, P, N, dtype=torch.float32):
+        # x, B and C as views into one fused (b, S, H*P + 2N) buffer, the
+        # layout the model hands K7 (ssm.py: slices of the conv output)
+        xbc = randn(b, S, H * P + 2 * N, dtype=dtype)
+        x = xbc[..., :H * P].reshape(b, S, H, P)
+        Bm, Cm = xbc[..., H * P:H * P + N], xbc[..., H * P + N:]
+        dt = F.softplus(randn(b, S, H)) * 0.1
+        A = -torch.exp(randn(H) * 0.3)
+        return x, dt, A, Bm, Cm
+
+    def k7(args, chunk, oracle):
+        y, h = sops.ssd_scan(*args, chunk=chunk)
+        y2, h2 = sops.ssd_scan(*args, chunk=chunk)
+        check(torch.equal(y, y2) and torch.equal(h, h2),
+              f"K7 repeat bitwise at {tuple(args[0].shape)}")
+        wants = [sref.ssd_chunked(*args, chunk=chunk)]
+        if oracle:
+            wants.append(sref.ssd_ref(*args))
+        e = 0.0
+        for yw, hw in wants:
+            for got, want in ((y, yw), (h, hw)):
+                d = (got - want).abs()
+                e = max(e, float(d.max()))
+                check(bool((d <= SSD_TOL + SSD_TOL * want.abs()).all()),
+                      f"K7 matches plain at {tuple(args[0].shape)} chunk "
+                      f"{chunk}: max err {float(d.max()):.3g}")
+        err["ssd_scan"] = max(err["ssd_scan"], e)
+        return e
+
+    for b, S, H, P, N, chunk in SSD_CASES:
+        k7(ssd_inputs(b, S, H, P, N), chunk, oracle=True)
+    print(f"kernels: K7 matches the chunked form and the sequential oracle "
+          f"at {len(SSD_CASES)} shapes (max err {err['ssd_scan']:.3g}, "
+          f"tol {SSD_TOL})", flush=True)
+
+    # the serve path's shapes: hymba-1.5b at B 4 x 2048 positions
+    B, S, H, Hkv, D, W = SERVE_BATCH, SERVE_PROMPT + 128, 25, 5, 64, 1024
+    bf = torch.bfloat16
+    q, k, v = (randn(B, S, h, D, dtype=bf) for h in (H, Hkv, Hkv))
+    rows = []
+    for window in (W, 0):
+        e = k6(q, k, v, True, window, 0.0, FLASH_TOL["bfloat16"])
+        pos = torch.arange(S, device=device)
+        mask = pos[None, :] <= pos[:, None]
+        if window:
+            mask &= pos[None, :] > pos[:, None] - window
+        pairs = int(mask.sum())
+        nbytes = 2 * (2 * B * S * H * D + 2 * B * S * Hkv * D)
+        b_ms, by = bound_of(nbytes, 4 * B * H * D * pairs, rate,
+                            op_rate=BF16_RATE)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        k6row = {
+            "name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention/kernel.py:69",
+            "shape": [B, S, H, Hkv, D, window], "max_abs_err": e,
+            "ms": median_ms(lambda: fops.flash_attention(
+                q, k, v, causal=True, window=window)),
+            "plain_ms": median_ms(lambda: plain_attention(
+                q, k, v, True, window, 0.0)),
+            "bound_ms": b_ms, "bound_by": by,
+            # timed only: the port never calls it
+            "library_ms": median_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, scale=D ** -0.5,
+                enable_gqa=True))}
+        print_kernel(k6row, nbytes, card)
+        print(f"kernel flash_attention window {window}: {pairs} visible "
+              f"pairs, {4 * B * H * D * pairs / k6row['ms'] / 1e9:.1f} "
+              f"TFLOP/s; max err vs bf16 plain {e:.3g}; bf16 store vs f32 "
+              f"plain at most {err['bf16_half_ulp']:.3f} of its half-ulp "
+              "limit", flush=True)
+        rows.append(k6row)
+    del q, k, v
+
+    b, H, P, N, Q = SERVE_BATCH, 50, 64, 16, 128
+    args = ssd_inputs(b, S, H, P, N, dtype=bf)
+    e = k7(args, Q, oracle=False)
+    nc = -(-S // Q)
+    # C B^T is shared by every head (ngroups = 1): once a (batch, chunk);
+    # its product with the decayed x and the two state products a head
+    flops = b * nc * (Q * (Q + 1) * N
+                      + H * 2 * (Q * (Q + 1) // 2 * P + 2 * Q * N * P))
+    nbytes = (2 * b * S * H * P + 4 * b * S * H + 4 * H + 2 * 2 * b * S * N
+              + 4 * b * S * H * P + 4 * b * H * P * N)
+    b_ms, by = bound_of(nbytes, flops, rate)
+    k7row = {"name": "ssd_scan", "route": "cuda",
+             "source": "src/repro_torch/csrc/ssd_scan.cu",
+             "replaces": "src/repro/kernels/ssd_scan/kernel.py:72",
+             "shape": [b, S, H, P, N, Q], "max_abs_err": err["ssd_scan"],
+             "ms": median_ms(lambda: sops.ssd_scan(*args, chunk=Q)),
+             "plain_ms": median_ms(lambda: sref.ssd_chunked(*args, chunk=Q)),
+             "bound_ms": b_ms, "bound_by": by,
+             "library_ms": None}        # no single PyTorch call computes it
+    print_kernel(k7row, nbytes, card)
+    print(f"kernel ssd_scan: {flops / k7row['ms'] / 1e9:.2f} TFLOP/s "
+          f"(f32); max err at the serve shape {e:.3g}", flush=True)
+    for row in rows:
+        row["max_abs_err"] = err["flash_attention"]
+    # the JSON row of K6 is its windowed shape, 28 of hymba's 32 layers
+    return [rows[0], k7row]
 
 
 # ---------------------------------------------------------------------------
@@ -697,6 +918,175 @@ def aggregate_phase(state, device, card: str):
           f"{ROUND_ATOL}); {s:.4f} s [{card}]", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 8: serving hymba-1.5b at full width (prefill through K6 and K7)
+# ---------------------------------------------------------------------------
+def serve_setup_phase(device, card: str):
+    """Random init from a seed on the card, cast once to bf16, a 1920-token
+    prompt per request; one short warm-up ``generate`` (cuBLAS plans, the
+    kernels' first launches) before the timed run."""
+    import torch
+    from repro_torch import tree
+    from repro_torch.launch import serve
+
+    model, params, tokens = serve.setup(
+        SERVE_ARCH, reduced=False, batch=SERVE_BATCH, prompt_len=SERVE_PROMPT,
+        seed=INIT_SEED, impl="kernel", device=device)
+    cfg = model.cfg
+    n = sum(p.numel() for p in tree.leaves(params))
+    with torch.no_grad():
+        _, s = sync_seconds(serve.generate, model, params, tokens, 2)
+    print(f"serve setup: {cfg.name} {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.n_heads} heads / {cfg.n_kv_heads} kv, "
+          f"{cfg.n_ssm_heads} SSD heads, {n} params in {cfg.dtype}; warm-up "
+          f"generate {s:.2f} s [{card}]", flush=True)
+    return {"model": model, "params": params, "tokens": tokens}
+
+
+def serve_phase(st, card: str):
+    """The main path of slice 3: one ``generate`` (prefill, then 31 decode
+    steps from the ring cache and the SSM state)."""
+    import torch
+    from repro_torch.launch import serve
+
+    model, tokens = st["model"], st["tokens"]
+    with torch.no_grad():
+        res = serve.generate(model, st["params"], tokens, SERVE_GEN)
+    print(serve.report(model, tokens, res) + f" [{card}]", flush=True)
+    out = res["tokens"]
+    check(out.shape == (SERVE_BATCH, SERVE_GEN), f"tokens {tuple(out.shape)}")
+    check(bool(((out >= 0) & (out < model.cfg.vocab)).all()),
+          "generated ids inside the vocab")
+    for key in ("first_logits", "last_logits"):
+        check(res[key].shape == (SERVE_BATCH, 1, model.cfg.vocab)
+              and bool(torch.isfinite(res[key]).all()),
+              f"{key} finite, (B, 1, vocab)")
+    st["res"] = res
+
+
+def serve_check_phase(st, device, card: str):
+    """(1) the kernel path's prefill logits against an ``impl="xla"`` twin
+    on the same params; (2) prefill(S + 1) against prefill(S) +
+    ``decode_step`` with the kernels on. Each in f32 (the served weights
+    widened) within ``SERVE_F32_TOL``, and in the served bf16, where the
+    kernel path may drift from the f32 plain path at most
+    ``SERVE_BF16_RATIO`` times as far as the bf16 plain path does."""
+    import dataclasses
+
+    import torch
+    from repro_torch import tree
+    from repro_torch.models import build_model
+
+    model, params, tokens = st["model"], st["params"], st["tokens"]
+    n_meta = model.cfg.n_meta_tokens
+    S = tokens.shape[1]
+    cfg32 = dataclasses.replace(model.cfg, dtype="float32")
+    params32 = tree.tree_map(lambda a: a.float(), params)
+    runs = {"kernel bf16": (model, params),
+            "xla bf16": (build_model(model.cfg, impl="xla", device=device),
+                         params),
+            "kernel f32": (build_model(cfg32, impl="kernel", device=device),
+                           params32),
+            "xla f32": (build_model(cfg32, impl="xla", device=device),
+                        params32)}
+
+    def diff(a, b):
+        d = (a.float() - b.float()).abs()
+        top1 = float((a.argmax(-1) == b.argmax(-1)).float().mean())
+        return d, f"max abs diff {float(d.max()):.4g}, mean " \
+            f"{float(d.mean()):.4g}, top-1 agreement {top1:.3f}"
+
+    def f32_gate(a, b, what):
+        d, text = diff(a, b)
+        print(f"serve check {what} (f32): {text} (rtol = atol = "
+              f"{SERVE_F32_TOL}) [{card}]", flush=True)
+        check(bool((d <= SERVE_F32_TOL + SERVE_F32_TOL * b.float().abs())
+                   .all()), f"{what} (f32) within {SERVE_F32_TOL}")
+
+    def bf16_gate(kernel_gap, plain_gap, what):
+        ratio = kernel_gap / plain_gap if plain_gap else float("nan")
+        print(f"serve check {what} (bf16): kernel path {kernel_gap:.4g}, "
+              f"plain path {plain_gap:.4g} (ratio {ratio:.3f}, at most "
+              f"{SERVE_BF16_RATIO}) [{card}]", flush=True)
+        check(kernel_gap <= SERVE_BF16_RATIO * plain_gap,
+              f"{what} (bf16): kernel path within {SERVE_BF16_RATIO}x the "
+              "plain path's drift")
+
+    with torch.no_grad():
+        cache_len = model.cache_len_for(n_meta + S + SERVE_GEN)
+        logits = {"kernel bf16": st["res"]["first_logits"]}
+        for name, (m, p) in runs.items():
+            if name not in logits:
+                logits[name], _ = m.prefill(p, {"tokens": tokens}, cache_len)
+        f32_gate(logits["kernel f32"], logits["xla f32"],
+                 "kernel prefill vs xla twin")
+        bf16_gate(*(float(diff(logits[k], logits["xla f32"])[0].max())
+                    for k in ("kernel bf16", "xla bf16")),
+                  "prefill logits vs the f32 plain path")
+
+        ext = torch.cat([tokens, st["res"]["tokens"][:, :1]], 1)
+        cache_len = n_meta + S + 1
+        pos = torch.full((SERVE_BATCH, 1), n_meta + S, dtype=torch.int32,
+                         device=device)
+        gaps = {}
+        for name in ("kernel f32", "kernel bf16", "xla bf16"):
+            m, p = runs[name]
+            full, _ = m.prefill(p, {"tokens": ext}, cache_len)
+            _, cache = m.prefill(p, {"tokens": tokens}, cache_len)
+            dec, _ = m.decode_step(p, cache, ext[:, S:], pos)
+            if name == "kernel f32":
+                f32_gate(dec, full, "prefill(S) + decode vs prefill(S+1)")
+            gaps[name] = float(diff(dec, full)[0].max())
+        bf16_gate(gaps["kernel bf16"], gaps["xla bf16"],
+                  "prefill(S) + decode vs prefill(S+1)")
+
+
+def serve_trace_phase(st, card: str):
+    """One prefill and one decode step under ``torch.profiler``: the card's
+    busy time against the untraced times of the serve phase (the device
+    idle share), and the kernels that took the most of it."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    model, params, tokens, res = (st[k] for k in
+                                  ("model", "params", "tokens", "res"))
+    n_meta = model.cfg.n_meta_tokens
+    S = tokens.shape[1]
+    cache_len = model.cache_len_for(n_meta + S + SERVE_GEN)
+    pos = torch.full((SERVE_BATCH, 1), n_meta + S, dtype=torch.int32,
+                     device=tokens.device)
+    untraced = {"prefill": res["prefill_s"] * 1e3,
+                "decode step": res["decode_s"] * 1e3 / (SERVE_GEN - 1)}
+    with torch.no_grad():
+        _, cache = model.prefill(params, {"tokens": tokens}, cache_len)
+        tok = res["tokens"][:, :1]
+        torch.cuda.synchronize()
+        runs = {"prefill": lambda: model.prefill(
+                    params, {"tokens": tokens}, cache_len),
+                "decode step": lambda: model.decode_step(
+                    params, cache, tok, pos)}
+        for what, fn in runs.items():
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                _, traced_s = sync_seconds(fn)
+            kernels = [e for e in prof.key_averages()
+                       if e.device_type == DeviceType.CUDA]
+            busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+            check(busy_ms > 0, f"the profiler saw device time ({what})")
+            wall = untraced[what]
+            top = sorted(kernels, key=lambda e: e.self_device_time_total,
+                         reverse=True)[:5]
+            print(f"trace: {what} device busy {busy_ms:.2f} ms in "
+                  f"{sum(e.count for e in kernels)} kernel launches; "
+                  f"untraced {wall:.2f} ms -> device idle share "
+                  f"{1 - busy_ms / wall:.3f}; traced {traced_s * 1e3:.2f} "
+                  "ms; top: " + "; ".join(
+                      f"{e.key[:40]} x{e.count} "
+                      f"{e.self_device_time_total / 1e3:.2f} ms"
+                      for e in top) + f" [{card}]", flush=True)
+
+
 def run_phase(name: str, peaks: list, card: str, fn, *args):
     """Run one phase; print its seconds and peak device memory."""
     import torch
@@ -760,10 +1150,17 @@ def main() -> int:
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
 
+    # the plain versions' f32 products stay f32 (no TF32), as on the CPU
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
     from repro_torch.configs import get_config
     from repro_torch.kernels import _build
     from repro_torch.kernels.compressed_agg import ops as cops
+    from repro_torch.kernels.flash_attention import ops as fops
     from repro_torch.kernels.secure_agg import ops
+    from repro_torch.kernels.ssd_scan import ops as sops
+    counters = (ops, cops, fops, sops)
 
     t0 = time.perf_counter()
     libs = _build.build_all(force=True)
@@ -779,29 +1176,33 @@ def main() -> int:
     kernels += run_phase("kernels K3/K4/K5", peaks, card,
                          compressed_kernel_phase, device, len(SILOS),
                          len(SILOS) - 1, t_main, card, rate)
+    kernels += run_phase("kernels K6/K7", peaks, card, attention_kernel_phase,
+                         device, card, rate)
+
+    def reset_launches():
+        for c in counters:
+            c.reset_launches()
 
     def read_path(name: str, expected):
         """The launch counts of the path just driven; each expected
         kernel must have launched in it."""
-        counts = {**ops.LAUNCHES, **cops.LAUNCHES}
+        counts = {k: v for c in counters for k, v in c.LAUNCHES.items()}
         for k in expected:
             check(counts[k] > 0, f"{k} launched on the {name} path")
         print(f"{name} path: launches {counts}", flush=True)
         return counts
 
     # the main path: slice 1's fp32 secure round and repair, then slice 2's
-    # compressed planes on the same trained silos; the counts are set to 0
-    # just before each and read just after it
+    # compressed planes on the same trained silos, then slice 3's serve
+    # run; the counts are set to 0 just before each and read just after it
     torch.cuda.empty_cache()
     peaks.clear()
-    ops.reset_launches()
-    cops.reset_launches()
+    reset_launches()
     state = run_phase("round", peaks, card, round_phase, cfg, device, card)
     check(state["T"] == t_main, f"packed size {state['T']} == {t_main}")
     run_phase("repair", peaks, card, repair_phase, state, device, card)
     fp32 = read_path("fp32 secure", ("masked_sum", "masked_sum_corrected"))
-    ops.reset_launches()
-    cops.reset_launches()
+    reset_launches()
     for what, fn in (("int8 round", int8_phase),
                      ("secure int8 round", secure_int8_phase),
                      ("integer repair", int_repair_phase),
@@ -812,12 +1213,27 @@ def main() -> int:
         "dequant_reduce", "masked_dequant_reduce",
         "masked_dequant_reduce_corrected", "secure_agg_combine",
         "masked_sum"))
-    launches = {k: fp32[k] + compressed[k] for k in fp32}
+    run_phase("trace", peaks, card, trace_phase, state, card)
+    del state
+    torch.cuda.empty_cache()
+
+    serve_state = run_phase("serve setup", peaks, card, serve_setup_phase,
+                            device, card)
+    reset_launches()
+    run_phase("serve", peaks, card, serve_phase, serve_state, card)
+    served = read_path("serve", ("flash_attention", "ssd_scan"))
+    n_layers = serve_state["model"].cfg.n_layers
+    check(served["flash_attention"] == served["ssd_scan"] == n_layers,
+          f"one prefill launches K6 and K7 once a layer ({n_layers})")
+    launches = {k: fp32[k] + compressed[k] + served[k] for k in fp32}
     for k in kernels:
         check(launches[k["name"]] > 0, f"{k['name']} launched on the path")
     print(f"main path: launches {launches}; peak device memory "
           f"{max(peaks):.2f} GiB [{card}]", flush=True)
-    run_phase("trace", peaks, card, trace_phase, state, card)
+    run_phase("serve checks", peaks, card, serve_check_phase, serve_state,
+              device, card)
+    run_phase("serve trace", peaks, card, serve_trace_phase, serve_state,
+              card)
 
     for k in kernels:
         k["launches"] = launches[k["name"]]

@@ -97,6 +97,16 @@ class ModelConfig:
     def resolved_head_dim(self) -> int:
         return self.head_dim or (self.d_model // self.n_heads)
 
+    @property
+    def d_inner_ssm(self) -> int:
+        if self.ssm is None:
+            raise ValueError(f"{self.name} has no SSM")
+        return self.ssm.expand * self.d_model
+
+    @property
+    def n_ssm_heads(self) -> int:
+        return self.d_inner_ssm // self.ssm.d_head
+
     def layer_is_local(self, i: int) -> bool:
         """True if layer ``i`` uses sliding-window (local) attention."""
         if self.sliding_window <= 0:

@@ -1,0 +1,96 @@
+"""Plain PyTorch versions of the Mamba2 SSD scan (port of
+``repro.kernels.ssd_scan.ref`` and ``repro.models.ssm.ssd_chunked``).
+
+``ssd_ref`` is the sequential recurrence, the ground truth
+
+    h_t = exp(dt_t * A) h_{t-1} + dt_t * B_t (x_t)^T
+    y_t = C_t . h_t
+
+and ``ssd_chunked`` the chunked form that K7 computes and the CPU path
+runs. Both widen every input to f32.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+f32 = torch.float32
+
+
+def ssd_ref(x, dt, A, B, C):
+    """x: (b,S,H,P); dt: (b,S,H); A: (H,); B,C: (b,S,N).
+
+    Returns y (b,S,H,P) f32 and final state (b,H,P,N) f32."""
+    b, S, H, P = x.shape
+    N = B.shape[-1]
+    x, dt, B, C, A = (t.to(f32) for t in (x, dt, B, C, A))
+    h = torch.zeros((b, H, P, N), dtype=f32, device=x.device)
+    ys = []
+    for t in range(S):
+        dA = torch.exp(dt[:, t] * A)                          # (b,H)
+        h = (h * dA[..., None, None]
+             + torch.einsum("bh,bhp,bn->bhpn", dt[:, t], x[:, t], B[:, t]))
+        ys.append(torch.einsum("bhpn,bn->bhp", h, C[:, t]))
+    y = torch.stack(ys, 1) if ys else x.new_zeros((b, 0, H, P))
+    return y, h
+
+
+def ssd_chunked(x, dt, A, B, C, *, chunk: int):
+    """Chunked SSD scan.
+
+    x: (b,S,H,P) head inputs; dt: (b,S,H) discretization (post-softplus);
+    A: (H,) negative decay rates; B, C: (b,S,N) (ngroups=1, broadcast to
+    heads). Returns y: (b,S,H,P) f32 and final state (b,H,P,N) f32.
+    """
+    b, S, H, P = x.shape
+    N = B.shape[-1]
+    Q = min(chunk, S)
+    S_orig = S
+    if S % Q:
+        # pad with dt=0 tokens: log-decay 0 and zero input, so padding is a
+        # no-op for both outputs and the final state
+        pad = Q - S % Q
+        x = F.pad(x, (0, 0, 0, 0, 0, pad))
+        dt = F.pad(dt, (0, 0, 0, pad))
+        B = F.pad(B, (0, 0, 0, pad))
+        C = F.pad(C, (0, 0, 0, pad))
+        S = S + pad
+    nc = S // Q
+
+    dlog = (dt.to(f32) * A.to(f32)).reshape(b, nc, Q, H)      # log dA (<=0)
+    xb = (x.to(f32) * dt.to(f32)[..., None]).reshape(b, nc, Q, H, P)
+    Bc = B.to(f32).reshape(b, nc, Q, N)
+    Cc = C.to(f32).reshape(b, nc, Q, N)
+
+    L = torch.cumsum(dlog, dim=2)                             # (b,nc,Q,H)
+    # --- intra-chunk (quadratic attention form) ---------------------------
+    # att[t,s] = (C_t . B_s) * exp(L_t - L_s), s <= t; the exponent is
+    # masked before the exp (above the diagonal it is positive)
+    cb = torch.einsum("bctn,bcsn->bcts", Cc, Bc)              # (b,nc,Q,Q)
+    causal = torch.tril(torch.ones((Q, Q), dtype=torch.bool,
+                                   device=x.device))[None, None, :, :, None]
+    diff = L[:, :, :, None, :] - L[:, :, None, :, :]          # (b,nc,t,s,H)
+    decay = torch.exp(torch.where(causal, diff, float("-inf")))
+    att = cb[..., None] * decay
+    y_intra = torch.einsum("bctsh,bcshp->bcthp", att, xb)
+
+    # --- chunk summary states ---------------------------------------------
+    # S_c = sum_s exp(L_last - L_s) B_s (x_s dt_s)^T  -> (b,nc,H,N,P)
+    last = L[:, :, -1:, :]                                    # (b,nc,1,H)
+    w = torch.exp(last - L)                                   # (b,nc,Q,H)
+    states = torch.einsum("bcsh,bcsn,bcshp->bchnp", w, Bc, xb)
+
+    # --- inter-chunk recurrence -------------------------------------------
+    chunk_decay = torch.exp(last[:, :, 0, :])                 # (b,nc,H)
+    h = torch.zeros((b, H, N, P), dtype=f32, device=x.device)
+    h_prevs = []
+    for c in range(nc):
+        h_prevs.append(h)
+        h = h * chunk_decay[:, c, :, None, None] + states[:, c]
+    h_prevs = torch.stack(h_prevs, 1)                         # (b,nc,H,N,P)
+
+    # --- inter-chunk contribution ------------------------------------------
+    y_inter = torch.einsum("bcth,bctn,bchnp->bcthp", torch.exp(L), Cc,
+                           h_prevs)
+    y = (y_intra + y_inter).reshape(b, S, H, P)[:, :S_orig]
+    return y, h.transpose(-1, -2)                             # (b,H,P,N)

@@ -1,19 +1,30 @@
-"""GQA self-attention, ``impl="xla"`` path (port of ``repro.models.attention``).
+"""GQA self-attention and its ring-buffer KV cache (port of
+``repro.models.attention``).
 
-Plain matmul + softmax, written out: scores are f32 even for bf16 q and
-k (the reference's ``preferred_element_type=jnp.float32``), masked
-entries are ``NEG_INF``, and q is processed in chunks of ``Q_CHUNK``
-rows. The flash-attention kernel (K6) comes later, with an ``impl``
-switch like the reference's (ROADMAP queue A item 13).
+Two execution paths for the softmax-attention core of a full sequence:
+  * ``impl="xla"``    — plain masked matmul + softmax, written out: scores
+    are f32 even for bf16 q and k (the reference's
+    ``preferred_element_type=jnp.float32``), masked entries are
+    ``NEG_INF``, q is processed in chunks of ``Q_CHUNK`` rows
+  * ``impl="kernel"`` — K6 flash attention (``kernels/flash_attention``),
+    the counterpart of the reference's ``impl="pallas"``: the prefill hot
+    path. The window is a Python int per layer.
+Decode always takes ``attend`` over the cache, as in the reference.
+
+KV caches are ring buffers carrying their own position array. The port
+writes them in place (``cache_write``), where the reference returns new
+arrays: a decode step then copies no cache.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.models.layers import apply_rope, dense_init, softcap
 
 NEG_INF = -2.3819763e38  # most-negative bf16-representable
 Q_CHUNK = 512
+IMPLS = ("xla", "kernel")
 
 
 def _grouped_scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
@@ -75,6 +86,12 @@ def attend_masked(q, k, v, *, q_pos, k_pos, k_valid, causal: bool,
                       for s in range(0, Sq, q_chunk)], dim=1)
 
 
+def attend(q, k, v, mask, *, logit_softcap: float = 0.0, scale: float):
+    """Single-block path (decode, small sequences, tests)."""
+    return _attend_block(q, k, v, mask, logit_softcap=logit_softcap,
+                         scale=scale)
+
+
 def gqa_init(gen: torch.Generator, cfg) -> dict:
     if cfg.use_bias or cfg.qk_norm:
         raise NotImplementedError(
@@ -107,16 +124,85 @@ def gqa_out(p: dict, out: torch.Tensor) -> torch.Tensor:
     return out.reshape(B, S, -1) @ p["wo"].to(out.dtype)
 
 
+def _self_attend(cfg, q, k, v, positions, *, window: int, causal: bool,
+                 impl: str):
+    """The attention core over a full sequence, by ``impl``.
+
+    ``"kernel"`` masks causal and window by index, so it assumes
+    ``positions`` is ``arange(S)`` in every row, as the model's stream
+    gives; ``"xla"`` masks by ``positions`` themselves. Offset or packed
+    positions need the ``"xla"`` path."""
+    scale = cfg.resolved_head_dim ** -0.5
+    if impl == "kernel":
+        return flash_ops.flash_attention(
+            q, k, v, causal=causal, window=int(window),
+            logit_softcap=cfg.attn_logit_softcap, scale=scale)
+    if impl != "xla":
+        raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
+    return attend_masked(q, k, v, q_pos=positions, k_pos=positions,
+                         k_valid=torch.ones(positions.shape, dtype=torch.bool,
+                                            device=positions.device),
+                         causal=causal, window=int(window),
+                         logit_softcap=cfg.attn_logit_softcap, scale=scale)
+
+
 def gqa_self_attention(p: dict, cfg, x: torch.Tensor,
                        positions: torch.Tensor, *, window: int,
-                       causal: bool = True):
-    """Full-sequence self-attention (train), the reference's
-    ``impl="xla"`` path."""
+                       causal: bool = True, impl: str = "xla"):
+    """Full-sequence self-attention (train / prefill)."""
     q, k, v = gqa_project_qkv(p, cfg, x, positions)
-    out = attend_masked(q, k, v, q_pos=positions, k_pos=positions,
-                        k_valid=torch.ones(positions.shape, dtype=torch.bool,
-                                           device=positions.device),
-                        causal=causal, window=int(window),
-                        logit_softcap=cfg.attn_logit_softcap,
-                        scale=cfg.resolved_head_dim ** -0.5)
+    out = _self_attend(cfg, q, k, v, positions, window=window, causal=causal,
+                       impl=impl)
     return gqa_out(p, out)
+
+
+def gqa_prefill(p: dict, cfg, x: torch.Tensor, positions: torch.Tensor, *,
+                window: int, cache_len: int, impl: str = "xla"):
+    """Full-sequence self-attention that also fills a fresh KV cache."""
+    q, k, v = gqa_project_qkv(p, cfg, x, positions)
+    out = _self_attend(cfg, q, k, v, positions, window=window, causal=True,
+                       impl=impl)
+    cache = gqa_cache_init(cfg, x.shape[0], cache_len, k.dtype, x.device)
+    cache = cache_write(cache, k, v, positions)
+    return gqa_out(p, out), cache
+
+
+# --- decode with ring-buffer cache ----------------------------------------
+def gqa_cache_init(cfg, batch: int, cache_len: int, dtype,
+                   device) -> dict:
+    Hkv, Dh = cfg.n_kv_heads, cfg.resolved_head_dim
+    return {
+        "k": torch.zeros((batch, cache_len, Hkv, Dh), dtype=dtype,
+                         device=device),
+        "v": torch.zeros((batch, cache_len, Hkv, Dh), dtype=dtype,
+                         device=device),
+        "pos": torch.full((batch, cache_len), -1, dtype=torch.int32,
+                          device=device),
+    }
+
+
+def cache_write(cache: dict, k_new, v_new, positions) -> dict:
+    """Write S_new entries at ring slots pos % T, in place. positions:
+    (B,S_new). Returns ``cache``."""
+    T = cache["k"].shape[1]
+    slots = (positions % T).long()                               # (B,S)
+    b_idx = torch.arange(k_new.shape[0], device=k_new.device)[:, None]
+    cache["k"][b_idx, slots] = k_new
+    cache["v"][b_idx, slots] = v_new
+    cache["pos"][b_idx, slots] = positions.to(torch.int32)
+    return cache
+
+
+def gqa_decode(p: dict, cfg, x: torch.Tensor, cache: dict,
+               positions: torch.Tensor, *, window: int):
+    """x: (B,1,D); positions: (B,1) absolute position of the new token.
+    Writes the new key and value into ``cache`` in place."""
+    q, k_new, v_new = gqa_project_qkv(p, cfg, x, positions)
+    cache = cache_write(cache, k_new, v_new, positions)
+    k_valid = cache["pos"] >= 0
+    mask = make_attention_mask(positions, cache["pos"], k_valid,
+                               causal=True, window=int(window))
+    out = attend(q, cache["k"], cache["v"], mask,
+                 logit_softcap=cfg.attn_logit_softcap,
+                 scale=cfg.resolved_head_dim ** -0.5)
+    return gqa_out(p, out), cache

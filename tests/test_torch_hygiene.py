@@ -72,6 +72,7 @@ def test_entry_points_need_cuda_unless_asked_for_cpu():
     from repro_torch.core.streaming import (MaskedF32Sink, ModularSink,
                                             QuantSink, TopkSink)
     from repro_torch.kernels.secure_agg.ops import combine_pytrees
+    from repro_torch.launch import serve
     from repro_torch.models import build_model
     zeros = np.zeros(4, np.float32)
     tree = {"w": zeros}
@@ -81,6 +82,10 @@ def test_entry_points_need_cuda_unless_asked_for_cpu():
     ef = ErrorFeedback("int8")
     calls = [
         lambda: build_model("fedforecast-100m"),
+        lambda: build_model("hymba-1.5b"),
+        lambda: build_model("hymba-1.5b", impl="kernel"),
+        lambda: serve.setup("hymba-1.5b"),
+        lambda: serve.main(["--arch", "hymba-1.5b", "--gen", "2"]),
         lambda: MaskedF32Sink(16),
         lambda: ModularSink(16, mbits=16, grid=0.01),
         lambda: QuantSink(16),
@@ -115,9 +120,23 @@ def test_entry_points_need_cuda_unless_asked_for_cpu():
 def test_kernel_build_is_not_triggered_by_import():
     from repro_torch.kernels import _build
     from repro_torch.kernels.compressed_agg import kernel as ckernel
+    from repro_torch.kernels.flash_attention import kernel as fkernel
     from repro_torch.kernels.secure_agg import kernel
-    assert kernel._lib.cache_info().currsize == 0
-    assert ckernel._lib.cache_info().currsize == 0
-    assert [p.name for p in _build.sources()] == ["compressed_agg.cu",
-                                                  "secure_agg.cu"]
+    from repro_torch.kernels.ssd_scan import kernel as skernel
+    from repro_torch.launch import serve  # noqa: F401
+    from repro_torch.models import ssm  # noqa: F401
+    for k in (kernel, ckernel, fkernel, skernel):
+        assert k._lib.cache_info().currsize == 0
+    assert not _build._LIBS
+    assert [p.name for p in _build.sources()] == [
+        "compressed_agg.cu", "flash_attention.cu", "secure_agg.cu",
+        "ssd_scan.cu"]
     assert "sm_90a" in " ".join(_build.NVCC_FLAGS)
+
+
+def test_import_check_covers_the_serve_slice():
+    mods = _modules()
+    for m in ("repro_torch.kernels.flash_attention.ops",
+              "repro_torch.kernels.ssd_scan.ops", "repro_torch.models.ssm",
+              "repro_torch.launch.serve", "repro_torch.configs.hymba_1p5b"):
+        assert m in mods
