@@ -8,13 +8,17 @@ Phases (every failed check exits non-zero):
 1. Environment: the card's name and power limit (``nvidia-smi``), torch
    and CUDA versions; exits if CUDA is absent or the card is not sm_90.
 2. Build: compiles ``src/repro_torch/csrc/*.cu`` with ``nvcc`` (one
-   process per source, in parallel) and prints the seconds it took.
+   process per source, in parallel) and prints the seconds it took, the
+   ``-Xptxas -v`` registers and spills of the K6/K7 kernels, and the
+   count of ``HGMMA`` (wgmma) instructions in K6's SASS, which must not
+   be 0.
 3. Kernels against their plain PyTorch versions on the card: K1
    ``masked_sum`` and K2 ``masked_sum_corrected`` at N in {1,2,3,8} x
    T in {127, 5000, 4097, 8192} and at the round's shapes (N = 3 and 2,
    T = 116,411,136), atol 1e-5 on unit-normal inputs (the kernel sums
    rows in another order than cuBLAS); two launches must agree bitwise.
-   Times are CUDA-event medians of 20 runs after a warm-up.
+   Times are CUDA-event medians of 20 reps after a warm-up, each rep the
+   mean of 5 back-to-back calls.
 4. One secure FedAvg round of ``fedforecast-100m`` at full width (12
    layers, d_model 768, bf16 compute on fp32 master weights, random init
    from a seed): 3 silos train 3 AdamW steps each, pre-scale, pack and
@@ -62,16 +66,21 @@ Phase 3 also holds K3 ``dequant_reduce``, K4 ``masked_dequant_reduce``
 (with and without corrections) and K5 ``secure_agg_combine`` against
 their plain versions at small shapes and at the round's shapes: K3 and
 K5 within 1e-5, K4 bitwise; and K6 ``flash_attention`` at the
-``FLASH_CASES`` shapes (f32 2e-5, bf16 2e-2, a ragged S included) and the
-serve shape with window 1024 and 0, K7 ``ssd_scan`` at the ``SSD_CASES``
-shapes and the serve shape (2e-4), with K6's library yardstick
-``F.scaled_dot_product_attention`` timed beside it (never on the path).
-Two launches must agree bitwise.
+``FLASH_CASES`` shapes (f32 2e-5 through its CUDA-core kernel, bf16 2e-2
+through its tensor-core kernel and within half a bf16 ulp of the f32
+plain version, a ragged S included) and the serve shape with window 1024
+and 0 (TFLOP/s, share of the bound, ratio to SDPA), K7 ``ssd_scan`` at
+the ``SSD_CASES`` and ``SSD_EXTRA`` shapes in f32 and bf16 and the serve
+shape (2e-4 against the chunked form, its three passes in plain torch
+and, off the serve shape, the sequential oracle; each pass's device
+time), with K6's library yardstick ``F.scaled_dot_product_attention``
+timed beside it (never on the path). Two launches must agree bitwise.
 
 Launch counters are reset before phase 4 and read after phase 5 (K1 and
 K2 must have run), reset again before phase 6a and read after 6e (K3, K4
 in both variants, K5 and K1 must have run), and reset before phase 8's
-timed serve run and read after it (K6 and K7 once a layer); the kernels
+timed serve run and read after it (K6's tensor-core kernel and K7 once a
+layer, K6's f32 kernel never); the kernels
 line gives the sum of the three paths. Each phase
 prints its seconds and peak device memory. The line before the last is
 the ``kernels`` JSON record; the last line is the device record.
@@ -81,6 +90,7 @@ from __future__ import annotations
 import hashlib
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -90,6 +100,9 @@ from types import SimpleNamespace
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
+
+from repro_torch.kernels.timing import (  # noqa: E402
+    device_ms_by_kernel, median_ms)
 
 SILOS = ["windco", "solarx", "gridpower"]
 DROPPED = "solarx"
@@ -102,7 +115,6 @@ SMALL_N = (1, 2, 3, 8)
 SMALL_T = (127, 5000, 4097, 8192)
 SMALL_T_CHUNKED = (1024, 5120, 8192, 13 * 1024)   # K3/K4: 1024 multiples
 CHUNK = 1024
-REPS = 20
 # the jobs of the compressed phases: int8 with adaptive per-chunk scales,
 # the defaults of DEFAULT_DECISIONS (duck-typed for make_error_feedback)
 INT8_JOB = SimpleNamespace(compression="int8", compression_ratio=0.1,
@@ -132,6 +144,14 @@ SSD_CASES = [
     (1, 128, 2, 16, 8, 32),
     (2, 96, 3, 8, 4, 32),
     (1, 80, 2, 8, 16, 32),
+]
+# beyond the sweep: ragged last chunks (77 = 2 x 32 + 13; 45 = 2 x 20 +
+# 5, with the chunk of 20 padded to 24 rows for the register tiles) and
+# mamba2's N = 128 at P 64, chunk 128
+SSD_EXTRA = [
+    (2, 77, 3, 8, 4, 32),
+    (1, 45, 2, 8, 4, 20),
+    (1, 256, 2, 64, 128, 128),
 ]
 # K7 against its plain chunked form, f32 both: sums over at most Q terms
 # and a chain of S/Q chunk states in another order; the SSD sweep's bar
@@ -165,23 +185,6 @@ def hbm_rate(name: str) -> float:
         if key in name:
             return rate
     raise RuntimeError(f"no memory rate known for {name!r}")
-
-
-def median_ms(fn, reps: int = REPS) -> float:
-    import torch
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
 
 
 def sync_seconds(fn, *args, **kw):
@@ -495,7 +498,8 @@ def attention_kernel_phase(device, card: str, rate: float):
         y2, h2 = sops.ssd_scan(*args, chunk=chunk)
         check(torch.equal(y, y2) and torch.equal(h, h2),
               f"K7 repeat bitwise at {tuple(args[0].shape)}")
-        wants = [sref.ssd_chunked(*args, chunk=chunk)]
+        wants = [sref.ssd_chunked(*args, chunk=chunk),
+                 sref.ssd_three_pass(*args, chunk=chunk)]
         if oracle:
             wants.append(sref.ssd_ref(*args))
         e = 0.0
@@ -509,10 +513,13 @@ def attention_kernel_phase(device, card: str, rate: float):
         err["ssd_scan"] = max(err["ssd_scan"], e)
         return e
 
-    for b, S, H, P, N, chunk in SSD_CASES:
-        k7(ssd_inputs(b, S, H, P, N), chunk, oracle=True)
-    print(f"kernels: K7 matches the chunked form and the sequential oracle "
-          f"at {len(SSD_CASES)} shapes (max err {err['ssd_scan']:.3g}, "
+    for b, S, H, P, N, chunk in SSD_CASES + SSD_EXTRA:
+        for dt in (torch.float32, torch.bfloat16):
+            k7(ssd_inputs(b, S, H, P, N, dtype=dt), chunk, oracle=True)
+    print(f"kernels: K7 matches the chunked form, its three passes in plain "
+          f"torch and the sequential oracle at "
+          f"{len(SSD_CASES + SSD_EXTRA)} shapes x {{f32, bf16}} (max err "
+          f"{err['ssd_scan']:.3g}, "
           f"tol {SSD_TOL})", flush=True)
 
     # the serve path's shapes: hymba-1.5b at B 4 x 2048 positions
@@ -548,9 +555,11 @@ def attention_kernel_phase(device, card: str, rate: float):
         print_kernel(k6row, nbytes, card)
         print(f"kernel flash_attention window {window}: {pairs} visible "
               f"pairs, {4 * B * H * D * pairs / k6row['ms'] / 1e9:.1f} "
-              f"TFLOP/s; max err vs bf16 plain {e:.3g}; bf16 store vs f32 "
-              f"plain at most {err['bf16_half_ulp']:.3f} of its half-ulp "
-              "limit", flush=True)
+              f"TFLOP/s, {b_ms / k6row['ms']:.3f} of its bound, "
+              f"{k6row['library_ms'] / k6row['ms']:.2f}x faster than SDPA "
+              f"(bf16 tensor-core kernel); max err vs bf16 plain {e:.3g}; "
+              f"bf16 store vs f32 plain at most {err['bf16_half_ulp']:.3f} "
+              f"of its half-ulp limit [{card}]", flush=True)
         rows.append(k6row)
     del q, k, v
 
@@ -574,8 +583,12 @@ def attention_kernel_phase(device, card: str, rate: float):
              "bound_ms": b_ms, "bound_by": by,
              "library_ms": None}        # no single PyTorch call computes it
     print_kernel(k7row, nbytes, card)
+    passes = device_ms_by_kernel(lambda: sops.ssd_scan(*args, chunk=Q))
     print(f"kernel ssd_scan: {flops / k7row['ms'] / 1e9:.2f} TFLOP/s "
-          f"(f32); max err at the serve shape {e:.3g}", flush=True)
+          f"(f32), {b_ms / k7row['ms']:.3f} of its bound; passes (device "
+          "ms a call, profiler): " + "; ".join(
+              f"{name} {ms:.4f}" for name, ms in passes.items())
+          + f"; max err at the serve shape {e:.3g} [{card}]", flush=True)
     for row in rows:
         row["max_abs_err"] = err["flash_attention"]
     # the JSON row of K6 is its windowed shape, 28 of hymba's 32 layers
@@ -1077,6 +1090,17 @@ def serve_trace_phase(st, card: str):
             wall = untraced[what]
             top = sorted(kernels, key=lambda e: e.self_device_time_total,
                          reverse=True)[:5]
+            ours = {"K6": ("flash_wgmma_k", "flash_fwd_k"),
+                    "K7": ("chunk_k", "pass_k", "output_k")}
+            parts = []
+            for kname, keys in ours.items():
+                mine = [e for e in kernels if any(k in e.key for k in keys)]
+                ms = sum(e.self_device_time_total for e in mine) / 1e3
+                parts.append(f"{kname} {ms:.2f} ms in "
+                             f"{sum(e.count for e in mine)} launches "
+                             f"({ms / busy_ms:.3f} of busy)")
+            print(f"trace: {what} " + ", ".join(parts) + f" [{card}]",
+                  flush=True)
             print(f"trace: {what} device busy {busy_ms:.2f} ms in "
                   f"{sum(e.count for e in kernels)} kernel launches; "
                   f"untraced {wall:.2f} ms -> device idle share "
@@ -1166,6 +1190,13 @@ def main() -> int:
     libs = _build.build_all(force=True)
     print(f"build: {[p.name for p in libs]} in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
+    for lib in ("flash_attention", "ssd_scan"):
+        print(f"build {lib}: " + "; ".join(_build.ptxas_report(lib)),
+              flush=True)
+    hgmma = _build.sass_count("flash_attention", "HGMMA")
+    print(f"build flash_attention: {hgmma} HGMMA instructions in its SASS",
+          flush=True)
+    check(hgmma > 0, "K6's bf16 kernel runs wgmma (HGMMA in its SASS)")
 
     cfg = get_config("fedforecast-100m")
     rate = hbm_rate(name)
@@ -1225,6 +1256,8 @@ def main() -> int:
     n_layers = serve_state["model"].cfg.n_layers
     check(served["flash_attention"] == served["ssd_scan"] == n_layers,
           f"one prefill launches K6 and K7 once a layer ({n_layers})")
+    check(served["flash_attention_f32"] == 0,
+          "the bf16 serve path runs K6's tensor-core kernel only")
     launches = {k: fp32[k] + compressed[k] + served[k] for k in fp32}
     for k in kernels:
         check(launches[k["name"]] > 0, f"{k['name']} launched on the path")

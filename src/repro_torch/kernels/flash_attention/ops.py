@@ -1,11 +1,17 @@
 """Public flash-attention op K6, in the models' (B,S,H,D) layout.
 
 For a CPU tensor the wrapper runs the plain version (``ref.py``). For a
-CUDA tensor it checks the inputs, allocates the output, launches the
+CUDA tensor it checks the inputs, allocates the output, launches a
 hand-written kernel on the current stream and counts the launch in
-``LAUNCHES``; it never falls back — it raises on what the kernel does not
+``LAUNCHES``; it never falls back — it raises on what the kernels do not
 take, and on inputs that need a gradient (there is no backward kernel
 yet).
+
+The kernel follows the inputs' type, a fixed rule: bfloat16 runs the
+tensor-core kernel (wgmma, TMA; counted as ``flash_attention``), float32
+the CUDA-core kernel (counted as ``flash_attention_f32``), because bf16
+tensor cores cannot hold float32's 2e-5 tolerance. The bf16 kernel's TMA
+maps need 16-byte-aligned bases and (b, s, h) strides.
 """
 from __future__ import annotations
 
@@ -20,7 +26,11 @@ HEAD_DIMS = (32, 64, 128)
 
 # kernel launches since the last reset (plain-version calls on CPU tensors
 # do not count)
-LAUNCHES: Dict[str, int] = {"flash_attention": 0}
+LAUNCHES: Dict[str, int] = {"flash_attention": 0, "flash_attention_f32": 0}
+# the counter of each input type's kernel
+VARIANT = {torch.bfloat16: "flash_attention",
+           torch.float32: "flash_attention_f32"}
+TMA_ALIGN = 16               # bytes: TMA base and stride alignment
 
 
 def reset_launches():
@@ -54,6 +64,17 @@ def check_flash_attention(q, k, v, window):
                          "heads")
     if int(window) < 0:
         raise ValueError(f"window must be >= 0, got {window}")
+    if q.dtype == torch.bfloat16:
+        for name, a in (("q", q), ("k", k), ("v", v)):
+            if a.data_ptr() % TMA_ALIGN:
+                raise ValueError(f"{name}'s base is not {TMA_ALIGN}-byte "
+                                 "aligned (the bf16 kernel loads by TMA)")
+            for dim, n in zip("bsh", _k.bsh_strides(a)):
+                if n * a.element_size() % TMA_ALIGN:
+                    raise ValueError(
+                        f"{name}'s {dim} stride {n} is not a "
+                        f"{TMA_ALIGN}-byte multiple (the bf16 kernel loads "
+                        "by TMA)")
     if torch.is_grad_enabled() and any(a.requires_grad for a in (q, k, v)):
         raise NotImplementedError(
             "flash_attention has no backward kernel yet: train through the "
@@ -77,5 +98,5 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     _k.flash_attention_bshd(q, k, v, out, scale=scale, causal=causal,
                             window=int(window), softcap=logit_softcap)
-    LAUNCHES["flash_attention"] += 1
+    LAUNCHES[VARIANT[q.dtype]] += 1
     return out

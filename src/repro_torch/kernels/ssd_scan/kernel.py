@@ -2,7 +2,9 @@
 
 ``ssd_scan_fwd`` replaces ``repro/kernels/ssd_scan/kernel.py::
 ssd_scan_chunked``. It is bound by operations (f32 on the CUDA cores);
-the source note in the ``.cu`` file gives the counts and the design.
+the source note in the ``.cu`` file gives the counts and the design: three
+launches (chunk states and C B^T, state passing, output) behind one call,
+with scratch that ``ssd_scan_chunked`` allocates.
 
 This function launches on the tensors' current CUDA stream, does not
 synchronise, and assumes the caller (``ops.py``) has checked device,
@@ -25,33 +27,67 @@ DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_SMEM = 232448            # dynamic shared memory a block may use on sm_90
 
 
+PAD_ROWS = 8                 # the kernels pad the chunk to a multiple
+TILE_COLS = 4                # columns of y a thread (float4), so P % 4 == 0
+
+
+def padded_chunk(q: int) -> int:
+    return -(-q // PAD_ROWS) * PAD_ROWS
+
+
 def smem_bytes(q: int, p: int, n: int) -> int:
-    """Shared memory a launch needs (the same count as the ``.cu``)."""
-    return 4 * (q * p + 2 * q * n + n * p + q * q + 3 * q)
+    """Shared memory the largest pass needs (the same count as the
+    ``.cu``): the output pass's decayed C B^T, xb, C, the entering state,
+    L and dt, or the chunk pass's, whichever is larger."""
+    qp = padded_chunk(q)
+    out = qp * qp + qp * p + n * qp + n * p + 2 * qp
+    chunk = max(2 * qp + qp * p + qp * n, 2 * qp * n)
+    return 4 * max(out, chunk)
 
 
-@functools.lru_cache(maxsize=None)
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("ssd_scan")
+def scratch_shapes(b: int, S: int, H: int, P: int, N: int, q: int):
+    """The f32 scratch of one call: C B^T transposed (b, nc, Qp, Qp), L
+    (b, nc, H, Qp), each chunk's own state and the state entering it
+    (b, nc, H, N, P) each."""
+    nc, qp = -(-S // q), padded_chunk(q)
+    return {"cbt": (b, nc, qp, qp), "L": (b, nc, H, qp),
+            "states": (b, nc, H, N, P), "entering": (b, nc, H, N, P)}
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C signature of a library built from ``ssd_scan.cu`` (or
+    from a variant of it)."""
     lib.ssd_scan_fwd.argtypes = [
-        _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+        _I,
         ctypes.POINTER(ctypes.c_longlong), _I, _P]
     lib.ssd_scan_fwd.restype = _I
     return lib
 
 
-def ssd_scan_chunked(x, dt, A, B, C, y, state, *, chunk: int):
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    return bind(_build.load("ssd_scan"))
+
+
+def ssd_scan_chunked(x, dt, A, B, C, y, state, *, chunk: int,
+                     lib: ctypes.CDLL = None):
     """K7: y, state = chunked SSD scan of (x, dt, A, B, C) with chunk
     length ``chunk`` (<= S); y (b,S,H,P) and state (b,H,P,N) contiguous
-    f32 outputs."""
+    f32 outputs. ``lib``: a library built from a variant of the source
+    (``bind`` first); the committed one by default."""
     b, S, H, P = x.shape
     N = B.shape[-1]
+    scratch = {k: torch.empty(shape, dtype=torch.float32, device=x.device)
+               for k, shape in scratch_shapes(b, S, H, P, N, chunk).items()}
     strides = (ctypes.c_longlong * 10)(
         x.stride(0), x.stride(1), x.stride(2), dt.stride(0), dt.stride(1),
         dt.stride(2), B.stride(0), B.stride(1), C.stride(0), C.stride(1))
-    _check(_lib().ssd_scan_fwd(
+    _check((lib or _lib()).ssd_scan_fwd(
         x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
-        C.data_ptr(), y.data_ptr(), state.data_ptr(), DTYPES[x.dtype], b, S,
-        H, P, N, int(chunk), strides, x.device.index, _stream(x.device)),
-        "ssd_scan")
+        C.data_ptr(), y.data_ptr(), state.data_ptr(),
+        *(scratch[k].data_ptr()
+          for k in ("cbt", "L", "states", "entering")),
+        DTYPES[x.dtype], b, S, H, P, N, int(chunk), strides, x.device.index,
+        _stream(x.device)), "ssd_scan")
     return y, state

@@ -2,10 +2,11 @@
 
 For a CPU tensor the wrapper runs the plain chunked form
 (``ref.ssd_chunked``). For a CUDA tensor it checks the inputs, allocates
-the outputs, launches the hand-written kernel on the current stream and
-counts the launch in ``LAUNCHES``; it never falls back — it raises on
-what the kernel does not take, and on inputs that need a gradient (there
-is no backward kernel yet).
+the outputs and scratch, launches the hand-written kernels (three passes)
+on the current stream and counts the call as one launch in
+``LAUNCHES``; it never falls back — it raises on what the kernels do not
+take, and on inputs that need a gradient (there is no backward kernel
+yet).
 """
 from __future__ import annotations
 
@@ -52,6 +53,9 @@ def check_ssd_scan(x, dt, A, B, C, chunk):
             raise ValueError(f"{name}'s last dim must be contiguous")
     if int(chunk) < 1:
         raise ValueError(f"chunk must be >= 1, got {chunk}")
+    if P % _k.TILE_COLS:
+        raise ValueError(f"head dim P {P} is not a multiple of "
+                         f"{_k.TILE_COLS} (the kernel's float4 tiles)")
     q = min(int(chunk), S) or 1
     need = _k.smem_bytes(q, P, B.shape[-1])
     if need > _k.MAX_SMEM:

@@ -94,3 +94,47 @@ def ssd_chunked(x, dt, A, B, C, *, chunk: int):
                            h_prevs)
     y = (y_intra + y_inter).reshape(b, S, H, P)[:, :S_orig]
     return y, h.transpose(-1, -2)                             # (b,H,P,N)
+
+
+def ssd_three_pass(x, dt, A, B, C, *, chunk: int):
+    """The chunk-parallel decomposition K7 runs, in plain torch (for the
+    tests and ``chip_smoke.py``; the CPU path runs ``ssd_chunked``):
+
+    1. per (batch, chunk): C B^T once for every head; per head L =
+       cumsum(dt A) and the chunk's own state S_c = sum_s exp(L_last -
+       L_s) B_s xb_s^T;
+    2. state passing over the chunks: h_c = exp(L_last,c) h_{c-1} + S_c;
+    3. per (batch, chunk, head): y = (C B^T o exp(L_t - L_s) o tril) xb +
+       exp(L_t) C h_{c-1}.
+
+    Same arguments and results as ``ssd_chunked``."""
+    b, S, H, P = x.shape
+    N = B.shape[-1]
+    Q = min(chunk, S) or 1
+    nc = -(-S // Q)
+    pad = nc * Q - S                    # dt = 0 rows: a no-op
+    x, dt, B, C = (F.pad(t.to(f32), (0, 0) * (t.dim() - 2) + (0, pad))
+                   for t in (x, dt, B, C))
+    xb = (x * dt[..., None]).reshape(b, nc, Q, H, P)
+    Bc, Cc = B.reshape(b, nc, Q, N), C.reshape(b, nc, Q, N)
+    # pass 1
+    cb = torch.einsum("bctn,bcsn->bcts", Cc, Bc)              # once a chunk
+    L = torch.cumsum((dt * A.to(f32)).reshape(b, nc, Q, H), dim=2)
+    w = torch.exp(L[:, :, -1:, :] - L)                        # (b,nc,Q,H)
+    s_c = torch.einsum("bcsn,bcsh,bcshp->bchnp", Bc, w, xb)
+    # pass 2
+    h = torch.zeros((b, H, N, P), dtype=f32, device=x.device)
+    entering = []
+    for c in range(nc):
+        entering.append(h)
+        h = h * torch.exp(L[:, c, -1, :])[..., None, None] + s_c[:, c]
+    entering = torch.stack(entering, 1)                       # (b,nc,H,N,P)
+    # pass 3
+    tri = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=x.device))
+    diff = L[:, :, :, None, :] - L[:, :, None, :, :]          # (b,nc,t,s,H)
+    att = cb[..., None] * torch.exp(
+        torch.where(tri[None, None, :, :, None], diff, float("-inf")))
+    y = (torch.einsum("bctsh,bcshp->bcthp", att, xb)
+         + torch.exp(L)[..., None]
+         * torch.einsum("bctn,bchnp->bcthp", Cc, entering))
+    return y.reshape(b, nc * Q, H, P)[:, :S], h.transpose(-1, -2)
