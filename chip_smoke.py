@@ -28,6 +28,25 @@ Phases (every failed check exits non-zero):
 5. Dropout repair at full width: ``solarx`` drops after masking; the
    survivors' corrections are folded streamed (K1) and combined stacked
    (K2); both must equal the plain survivor sum.
+5b. ``fl run``: the FL-APU sync run end to end through the port's
+   control plane, at full width: ``Consortium`` (the silos of phase 4,
+   ``device`` the card, phase 4's init injected as the server's initial
+   global) negotiates the contract (2 secure rounds of 3 AdamW steps,
+   batch 8 x 256, lr 3e-4, round deadline 3 ticks, round GC on), the
+   Job Creator turns it into a job, and the run goes waiting_clients ->
+   validating -> distribute -> collect (``MaskedF32Sink``, K1) ->
+   evaluate, then round 1 with ``solarx`` dropped as its collect opens
+   -> repair (corrections as weight -1 rows of the same sink, K1) ->
+   evaluate -> deploying -> done; then one ``predict`` on a survivor.
+   Gates: done, the provenance chain verifies, 2 rounds committed, round
+   1 repaired over 2 silos, round 0's global within 1e-5 of phase 4's
+   (same init, batches, steps and lr; only the masks' rounding differs),
+   round 1 moves no weight by more than 1e-2, finite losses,
+   ``mask_repair`` and ``deploy_model`` from both survivors, predicted
+   tokens in range. Prints the run's wall and per-round seconds, host
+   seconds by telemetry span (``phase:*``, ``client.*``,
+   ``kernel:masked_sum*``), the board's bytes and the host codec seconds
+   of one 465.6 MB message.
 6. The compressed planes at full width, on phase 4's trained silos
    (deltas = ``pack_delta(trained, init)``, T padded to Tp, a 1024
    multiple):
@@ -77,11 +96,12 @@ time), with K6's library yardstick ``F.scaled_dot_product_attention``
 timed beside it (never on the path). Two launches must agree bitwise.
 
 Launch counters are reset before phase 4 and read after phase 5 (K1 and
-K2 must have run), reset again before phase 6a and read after 6e (K3, K4
+K2 must have run), reset before phase 5b and read after it (K1 must have
+run), reset again before phase 6a and read after 6e (K3, K4
 in both variants, K5 and K1 must have run), and reset before phase 8's
 timed serve run and read after it (K6's tensor-core kernel and K7 once a
 layer, K6's f32 kernel never); the kernels
-line gives the sum of the three paths. Each phase
+line gives the sum of the four paths. Each phase
 prints its seconds and peak device memory. The line before the last is
 the ``kernels`` JSON record; the last line is the device record.
 """
@@ -725,6 +745,143 @@ def repair_phase(state, device, card: str):
 
 
 # ---------------------------------------------------------------------------
+# phase 5b: the FL-APU sync run end to end, through the port's control plane
+# ---------------------------------------------------------------------------
+FL_MASTER_KEY = hashlib.sha256(b"chip-smoke fl master key").digest()
+FL_ROUNDS = 2
+FL_DROP = {DROPPED: ("collect", 1)}
+FL_ROUND0_ATOL = 1e-5      # round 0 vs round_phase: only mask rounding differs
+FL_ROUND1_MOVE = 1e-2      # 3 AdamW steps at lr 3e-4 move a weight <~ 3e-3
+FL_SPANS = ("client.fetch", "client.train", "client.compress", "client.post")
+
+
+def fl_phase(state, device, card: str, reduced: bool = False):
+    """Negotiate, create the job and run ``fedforecast-100m`` at full width
+    for ``FL_ROUNDS`` secure rounds through ``Consortium``: ``solarx``
+    drops as round 1's collect opens, so round 1 repairs; then deploy and
+    one ``predict`` on a survivor. Round 0 trains on ``round_phase``'s
+    init and batches, so its committed global must match that phase's.
+    ``reduced`` runs the 2-layer variant (a CPU rehearsal, after
+    ``round_phase`` on the reduced config)."""
+    from repro_torch import tree as _tree
+    from repro_torch.configs import get_config
+    from repro_torch.core import Consortium, Telemetry
+    from repro_torch.data.synthetic import make_silo_datasets
+
+    cfg = get_config("fedforecast-100m")
+    vocab = (cfg.reduced() if reduced else cfg).vocab
+
+    tel = Telemetry(enabled=True, recorder_cap=1 << 20)
+    con = Consortium(SILOS, seed=0, master_key=FL_MASTER_KEY, device=device,
+                     telemetry=tel, initial_params=state["init"])
+    contract = con.negotiate({
+        "arch": "fedforecast-100m", "reduced": reduced, "rounds": FL_ROUNDS,
+        "local_steps": LOCAL_STEPS, "batch_size": BATCH_SIZE, "lr": LR,
+        "data_schema": {"vocab": vocab, "seq_len": SEQ_LEN},
+        "secure_aggregation": True, "round_deadline_ticks": 3,
+        "gc_round_resources": True})
+    job = con.server.job_creator.from_contract(contract)
+    datasets = make_silo_datasets(len(SILOS), vocab=vocab, seq_len=SEQ_LEN,
+                                  seed=1)
+    for ds in datasets:      # round_phase drew a held-out batch first
+        ds.batch(BATCH_SIZE)
+    run_id = con.start(job, datasets)
+    phase, wall = sync_seconds(con.run_to_completion, drop_at=dict(FL_DROP))
+    server = con.server
+    run = server.run
+    check(phase == "done", f"the FL run ends in done (got {phase})")
+    check(server.metadata.verify_chain(), "the provenance chain verifies")
+    check(len(run.history) == FL_ROUNDS,
+          f"{FL_ROUNDS} rounds committed (got {len(run.history)})")
+    models = [server.metadata.query(kind="model", digest=h["digest"])[0]
+              for h in run.history]
+    check(models[1]["details"]["repaired"]
+          and len(models[1]["details"]["cohort"]) == len(SILOS) - 1,
+          f"round 1 repaired over {len(SILOS) - 1} silos: "
+          f"{models[1]['details']}")
+    g0, g1 = (server.store.get(h["digest"]) for h in run.history)
+
+    def max_diff(a, b):
+        return max(float((x.float() - y.float()).abs().max())
+                   for x, y in zip(_tree.leaves(a), _tree.leaves(b)))
+    e0 = max_diff(g0, state["global"])
+    check(e0 <= FL_ROUND0_ATOL,
+          f"round 0 global vs round_phase's {e0:.3g} <= {FL_ROUND0_ATOL}")
+    move = max_diff(g1, g0)
+    check(move <= FL_ROUND1_MOVE,
+          f"round 1 moves a weight {move:.3g} <= {FL_ROUND1_MOVE}")
+    losses = [v for h in run.history for v in h["train_losses"].values()]
+    losses += [h["mean_eval_loss"] for h in run.history]
+    check(all(math.isfinite(v) for v in losses), f"finite losses {losses}")
+    dropped = con.client_ids[DROPPED]
+    survivors = [n for n in con.nodes if n.client_id != dropped]
+    for op in ("mask_repair", "deploy_model"):
+        by = [n.client_id for n in survivors
+              if n.metadata.query(operation=op)]
+        check(len(by) == len(survivors), f"{op} from every survivor: {by}")
+    node = next(n for n in survivors if n.deployed_params is not None)
+    prompt = datasets[0].batch(1)["tokens"][:, :32]
+    (toks, s_predict) = sync_seconds(node.predict, prompt, 8)
+    check(toks.shape == (1, 8) and 0 <= toks.min() and toks.max() < vocab,
+          f"predict returns tokens in range: {toks.tolist()}")
+
+    spans = tel.spans(run_id)
+    host: dict = {}
+    by_round: dict = {}
+    for sp in spans:
+        if sp.t1 is None:
+            continue
+        host[sp.name] = host.get(sp.name, 0.0) + (sp.t1 - sp.t0)
+        if sp.name.startswith("phase:") and sp.name not in (
+                "phase:waiting_clients", "phase:validating",
+                "phase:deploying"):
+            rnd = (sp.attrs or {}).get("round")
+            by_round[rnd] = by_round.get(rnd, 0.0) + (sp.t1 - sp.t0)
+    stats = server.board.stats
+    print(f"fl run: fedforecast-100m {'reduced' if reduced else 'full width'}"
+          f", T={state['T']}, "
+          f"{len(SILOS)} silos, {FL_ROUNDS} secure rounds x {LOCAL_STEPS} "
+          f"steps, {DROPPED} dropped at round 1's collect; phase {phase}, "
+          f"chain intact, round 1 repaired over {len(survivors)}; round 0 "
+          f"vs round_phase {e0:.3g} (atol {FL_ROUND0_ATOL}); round 1 moves "
+          f"{move:.3g}; train losses {[round(v, 4) for v in losses]}; "
+          f"predict {toks.tolist()} [{card}]", flush=True)
+    print(f"fl run: wall {wall:.3f} s over {con.scheduler.passes} passes; "
+          f"per-round s " + ", ".join(
+              f"r{k} {v:.3f}" for k, v in sorted(by_round.items()))
+          + f"; predict {s_predict:.3f} s [{card}]", flush=True)
+    keys = sorted(k for k in host if k.startswith("phase:")) + list(
+        FL_SPANS) + sorted(k for k in host
+                           if k.startswith("kernel:masked_sum"))
+    print("fl run host s: " + ", ".join(
+        f"{k} {host.get(k, 0.0):.3f}" for k in keys) + f" [{card}]",
+        flush=True)
+    print(f"fl run board: bytes posted {stats['bytes_posted']} (clients "
+          f"{stats['bytes_posted_clients']}), fetched "
+          f"{stats['bytes_fetched']}, posts {stats['posts']}, fetches "
+          f"{stats['fetches']} [{card}]", flush=True)
+    codec_seconds(state["masked"][SILOS[0]], card)
+
+
+def codec_seconds(buf, card: str):
+    """Host seconds of one board message the size of a masked update:
+    the board's msgpack, encrypt (SHAKE-256 stream + HMAC), decrypt and
+    unpack, as ``ClientCommunicator.post`` and ``ServerCommunicator.
+    collect`` run them."""
+    from repro_torch.core import crypto, serialization
+    key = FL_MASTER_KEY
+    host, s_host = host_seconds(lambda: buf.cpu().numpy())
+    blob, s_pack = host_seconds(serialization.pack, {"packed": host})
+    ct, s_enc = host_seconds(crypto.encrypt, key, blob)
+    pt, s_dec = host_seconds(crypto.decrypt, key, ct)
+    out, s_unpack = host_seconds(serialization.unpack, pt)
+    check(out["packed"].tobytes() == host.tobytes(), "codec round trip")
+    print(f"fl run codec: one {len(blob)} B message: to host {s_host:.3f} s, "
+          f"pack {s_pack:.3f} s, encrypt {s_enc:.3f} s, decrypt "
+          f"{s_dec:.3f} s, unpack {s_unpack:.3f} s [{card}]", flush=True)
+
+
+# ---------------------------------------------------------------------------
 # phase 6: the compressed planes, on the round's trained silos
 # ---------------------------------------------------------------------------
 def host_seconds(fn, *args, **kw):
@@ -1223,9 +1380,10 @@ def main() -> int:
         print(f"{name} path: launches {counts}", flush=True)
         return counts
 
-    # the main path: slice 1's fp32 secure round and repair, then slice 2's
-    # compressed planes on the same trained silos, then slice 3's serve
-    # run; the counts are set to 0 just before each and read just after it
+    # the main path: slice 1's fp32 secure round and repair, slice 5's FL
+    # run through the control plane, slice 2's compressed planes on the
+    # round's trained silos, then slice 3's serve run; the counts are set
+    # to 0 just before each and read just after it
     torch.cuda.empty_cache()
     peaks.clear()
     reset_launches()
@@ -1233,6 +1391,9 @@ def main() -> int:
     check(state["T"] == t_main, f"packed size {state['T']} == {t_main}")
     run_phase("repair", peaks, card, repair_phase, state, device, card)
     fp32 = read_path("fp32 secure", ("masked_sum", "masked_sum_corrected"))
+    reset_launches()
+    run_phase("fl run", peaks, card, fl_phase, state, device, card)
+    fl = read_path("fl", ("masked_sum",))
     reset_launches()
     for what, fn in (("int8 round", int8_phase),
                      ("secure int8 round", secure_int8_phase),
@@ -1258,7 +1419,8 @@ def main() -> int:
           f"one prefill launches K6 and K7 once a layer ({n_layers})")
     check(served["flash_attention_f32"] == 0,
           "the bf16 serve path runs K6's tensor-core kernel only")
-    launches = {k: fp32[k] + compressed[k] + served[k] for k in fp32}
+    launches = {k: fp32[k] + fl[k] + compressed[k] + served[k]
+                for k in fp32}
     for k in kernels:
         check(launches[k["name"]] > 0, f"{k['name']} launched on the path")
     print(f"main path: launches {launches}; peak device memory "

@@ -11,7 +11,6 @@ import hashlib
 import torch
 
 from repro_torch import tree as _tree
-from repro_torch.core.packing import dtype_name
 
 
 def _leaf_bytes(leaf: torch.Tensor) -> bytes:
@@ -23,6 +22,9 @@ def _leaf_bytes(leaf: torch.Tensor) -> bytes:
 
 def pytree_digest(tree) -> str:
     """SHA256 over all leaf bytes — the model identity used for tracking."""
+    # imported here: ``repro_torch.core`` imports this module (its server
+    # and client digest models)
+    from repro_torch.core.packing import dtype_name
     h = hashlib.sha256()
     for leaf in _tree.leaves(tree):
         h.update(dtype_name(leaf.dtype).encode())

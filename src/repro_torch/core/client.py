@@ -1,0 +1,700 @@
+"""FL Client (paper §VI): FL Pipeline, Client Model Deployer (manager,
+personalization, decision maker, inference manager, model monitoring),
+Communicator, Database Manager slice.
+
+Like the server, the client is a cooperative state machine driven by
+``tick()`` — every tick is one poll cycle against the message board. The
+client is strictly *proactive*: it fetches configuration, models and status
+and posts its own resources; nothing on the client runs because the server
+asked it to (requirement 6).
+
+Port of ``repro.core.client``: the sync path of ``FLClientNode`` and
+``ClientAgent``. A node trains, evaluates and serves on its ``device``
+(default ``"cuda"``, which raises without CUDA); the reference's jitted
+executables become the port's eager loss and ``make_train_step``, shared
+per ``(arch, reduced, device)``. Payloads cross into numpy only where
+they are posted on the board, and fetched params go straight onto the
+device. Not ported yet (ROADMAP queue A item 12): device fleets
+(``devices_per_silo > 1``: the ``InnerRoundEngine``/``DeviceNode`` tier)
+and the async loop (``_do_async``); both raise ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+from collections import OrderedDict
+from dataclasses import dataclass
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch import tree as _tree
+from repro_torch.checkpoint import pytree_digest
+from repro_torch.core import secure_agg
+from repro_torch.convert import params_from_numpy, params_to_numpy
+from repro_torch.core.communicator import ClientCommunicator
+from repro_torch.core.packing import pack_pytree
+from repro_torch.core.jobs import FLJob
+from repro_torch.core.metadata import MetadataStore
+from repro_torch.core.protocol import NOT_PORTED
+from repro_torch.core.validation import apply_preprocessing
+from repro_torch.device import DEFAULT_DEVICE, resolve
+from repro_torch.models import build_model
+from repro_torch.optim import adamw, sgd
+from repro_torch.training import make_train_step
+
+
+@dataclass
+class ClientConfig:
+    deploy_threshold: float = 10.0     # max acceptable eval loss (CE)
+    monitor_threshold: float = 12.0    # alert threshold for deployed model
+    personalization_steps: int = 2     # local fine-tune steps on the release
+    eval_batches: int = 2
+
+
+# ---------------------------------------------------------------------------
+# Shared model/step caches: the built model and its train step are pure
+# functions of (arch, reduced, device, optimizer, lr), not of the job or the
+# node, so every FLClientNode in the process shares one. Both caches are
+# LRU-bounded, as in the reference.
+# ---------------------------------------------------------------------------
+_MODEL_CACHE: "OrderedDict[tuple, tuple]" = OrderedDict()
+_STEP_CACHE: "OrderedDict[tuple, tuple]" = OrderedDict()
+_MODEL_CACHE_MAX = 8
+_STEP_CACHE_MAX = 32
+
+# internal tag for the release fine-tune step — deliberately NOT a string,
+# so it can never collide with a governance-negotiated job.optimizer value
+PERSONALIZE = object()
+
+
+class InnerRoundAborted(RuntimeError):
+    """Raised by an inner-round boundary hook to kill a silo's round
+    before anything is trained or posted (tier-aware fault injection:
+    ``Consortium.run_to_completion(drop_at={org: ("inner_round", r)})``).
+    The silo simply never posts — the server-side dropout machinery
+    handles the disappearance like any other vanished client."""
+
+
+def _lru_get(cache, key, build, cap):
+    if key in cache:
+        cache.move_to_end(key)
+        return cache[key]
+    value = cache[key] = build()
+    while len(cache) > cap:
+        cache.popitem(last=False)
+    return value
+
+
+def shared_model(arch: str, reduced: bool, device=DEFAULT_DEVICE):
+    dev = resolve(device)
+
+    def build():
+        from repro_torch.configs import get_config
+        cfg = get_config(arch)
+        if reduced:
+            cfg = cfg.reduced()
+        model = build_model(cfg, device=dev)
+        return (cfg, model, torch.no_grad()(model.loss_fn))
+    return _lru_get(_MODEL_CACHE, (arch, bool(reduced), str(dev)), build,
+                    _MODEL_CACHE_MAX)
+
+
+def shared_step(arch: str, reduced: bool, optimizer, lr: float,
+                device=DEFAULT_DEVICE):
+    dev = resolve(device)
+
+    def build():
+        _, model, _ = shared_model(arch, reduced, dev)
+        if optimizer is PERSONALIZE:
+            opt = sgd(lr, momentum=0.0)   # release fine-tune: no momentum
+        elif optimizer == "adamw":
+            opt = adamw(lr, weight_decay=0.0)
+        else:
+            # any other negotiated value falls back to momentum-SGD, same
+            # as the pre-cache behaviour (the string is not validated)
+            opt = sgd(lr, momentum=0.9)
+        return (opt, make_train_step(model, opt))
+    key = (arch, bool(reduced), str(dev),
+           "~personalize" if optimizer is PERSONALIZE else ("s:" + optimizer),
+           float(lr))
+    return _lru_get(_STEP_CACHE, key, build, _STEP_CACHE_MAX)
+
+
+class FLClientNode:
+    def __init__(self, client_id: str, comm: ClientCommunicator, dataset,
+                 run_id: str, cohort: List[str], pair_secret: bytes,
+                 config: Optional[ClientConfig] = None,
+                 metadata: Optional[MetadataStore] = None,
+                 device=DEFAULT_DEVICE):
+        self.client_id = client_id
+        self.device = resolve(device)
+        self.comm = comm
+        self.dataset = dataset
+        self.run_id = run_id
+        # board namespace root for this run's resources — mirror of
+        # RunState.ns on the server side, so neither tier hardcodes the
+        # "runs/<id>" layout
+        self.ns = f"runs/{run_id}"
+        self.cohort = sorted(cohort)
+        self.pair_secret = pair_secret
+        # `is None`, not truthiness — same guard as metadata below; a
+        # falsy-but-real config must be adopted, not silently replaced
+        self.config = ClientConfig() if config is None else config
+        # the federation-wide observability bundle rides the board — the
+        # same instance the scheduler and servers stamp their spans on
+        self.telemetry = comm.board.telemetry
+        # `is None`, not truthiness: the agent shares its (possibly still
+        # empty, hence falsy) store across this silo's nodes — replacing
+        # it would split the silo's provenance trail per run
+        self.metadata = MetadataStore() if metadata is None else metadata
+        # pipeline state
+        self.job: Optional[FLJob] = None
+        self.model = None
+        self._train_step = None
+        self._opt = None
+        self.opt_state = None
+        self.round_done = -1
+        self.hp_seen = 0
+        self.eval_done = -1
+        self.eval_hp = 0
+        self.said_hello = False
+        self.posted_stats = False
+        # compressed data plane (DESIGN.md §Compressed data plane):
+        # error-feedback residual state, created with the job
+        self._ef = None
+        # liveness + dropout repair (DESIGN.md §Dropout-tolerant rounds)
+        self._hb = 0
+        self._packed_size: Optional[int] = None
+        self._repair_done = None            # (hp, round, epoch) last posted
+        self._attempt_seen = 0              # server round_attempt mirrored
+        # inner_hooks fire at inner-round boundaries — the tier-aware
+        # analogue of the scheduler's on_phase callback (Consortium wires
+        # drop_at through them)
+        self.inner_hooks: List = []
+        # deployment state
+        self.deployed_params = None
+        self.deployed_digest: Optional[str] = None
+        self.monitor_history: List[dict] = []
+        self.notifications: List[str] = []
+        self._fixed_eval_batch = None
+
+    # ------------------------------------------------------------------
+    def tick(self) -> str:
+        """One poll cycle. Returns a short description of what happened."""
+        # heartbeat first: the server watches the refresh stamp to tell
+        # slow from gone when a round deadline expires. Posted while the
+        # job is still unknown (the waiting_clients phase needs liveness
+        # too) and skipped entirely for jobs that run without deadlines.
+        if self.job is None or self.job.round_deadline_ticks:
+            self._hb += 1
+            self.comm.heartbeat(self.run_id, self._hb)
+        if self.job is None:
+            job_d = self.comm.fetch(f"{self.ns}/job",
+                                    broadcast=True)
+            if job_d is None:
+                return "waiting_job"
+            self._setup_job(FLJob.from_dict(job_d))
+            return "job_fetched"
+        if not self.said_hello:
+            self.comm.post(f"{self.ns}/hello/{self.client_id}",
+                           {"client": self.client_id})
+            self.said_hello = True
+            return "hello"
+        if not self.posted_stats and self.job.data_schema is not None:
+            stats = dict(self.dataset.stats())
+            declared = getattr(self.dataset, "n_examples", None)
+            stats["n_examples"] = declared if declared is not None else 10 ** 6
+            self.comm.post(f"{self.ns}/validation/{self.client_id}",
+                           stats)
+            self.posted_stats = True
+            self.metadata.record_provenance(
+                actor=self.client_id, operation="post_data_stats",
+                subject=self.run_id, outcome="posted")
+            return "stats_posted"
+
+        # conditional fetch: status is polled every tick but changes at
+        # most once per round — unchanged ticks cost a metadata round
+        # trip, not a re-download + decrypt
+        status = self.comm.fetch_cached(f"{self.ns}/status",
+                                        broadcast=True)
+        if status is None:
+            return "waiting_status"
+        attempt = status.get("attempt", 0)
+        if attempt != self._attempt_seen:
+            # the admin resumed an interrupted round: the server re-runs it
+            # with the surviving cohort, so local round/eval state resets
+            self._attempt_seen = attempt
+            self.round_done = -1
+            self.eval_done = -1
+            self._repair_done = None
+            if self._ef is not None:
+                # the aborted attempt's posted update was wiped server-side,
+                # so the residual refers to mass the server never folded
+                self._ef.reset()
+        phase = status["phase"]
+        if phase == "paused":
+            self._notify(f"run paused: {status.get('pause_reason')}")
+            return "paused"
+        if phase in ("collect", "distribute"):
+            return self._do_round(status)
+        if phase == "repair":
+            return self._do_repair(status)
+        if phase == "async_serve":
+            return self._do_async(status)
+        if phase == "evaluate":
+            return self._do_eval(status)
+        if phase == "done":
+            return self._do_deploy()
+        return f"idle({phase})"
+
+    # ------------------------------------------------------------------
+    def _setup_job(self, job: FLJob):
+        if job.device_fleet:
+            raise NotImplementedError(
+                f"device fleets (devices_per_silo={job.devices_per_silo}, "
+                f"device_cohort_size={job.device_cohort_size}) {NOT_PORTED}")
+        self.job = job
+        # models and steps are shared process-wide: a silo serving N
+        # concurrent jobs on one architecture builds them once, not N times
+        self.cfg, self.model, self._loss_jit = shared_model(
+            job.arch, job.reduced, self.device)
+        if job.compression != "none":
+            from repro_torch.core.compression import make_error_feedback
+            # noise streams (stochastic rounding, DP) key off the silo's
+            # stable identity, not the registered device id — device ids
+            # are minted fresh every registration (clients.py uuid), and
+            # reproducibility (twin runs, fixed-seed DP benches) needs a
+            # re-run over the same silo to draw the same streams
+            noise_id = str(getattr(self.dataset, "silo_id", None)
+                           or self.client_id)
+            self._ef = make_error_feedback(job, noise_id,
+                                           device=self.device)
+        self.metadata.record_provenance(
+            actor=self.client_id, operation="fetch_job", subject=job.job_id,
+            outcome="configured", details={"arch": job.arch})
+
+    def _get_step(self, lr: float):
+        return shared_step(self.job.arch, self.job.reduced,
+                           self.job.optimizer, lr, self.device)
+
+    def _batch_from(self, dataset):
+        batch = dataset.batch(self.job.batch_size)
+        if self.job.preprocessing:
+            batch = apply_preprocessing(batch, self.job.preprocessing)
+        return {k: torch.from_numpy(np.asarray(v)).to(self.device)
+                for k, v in batch.items()}
+
+    def _local_batch(self):
+        return self._batch_from(self.dataset)
+
+    def _fit(self, dataset, base_params, lr: float):
+        """Model Trainer: the job's local steps on ``dataset``, from
+        ``base_params``. Returns ``(params, loss, n_examples)`` —
+        n_examples is the nominal training budget capped by the dataset's
+        declared size (a silo or device smaller than the budget carries
+        proportionally less FedAvg weight; for masked rounds the silo's
+        pre-scale factor stays <= 1, so masking strength is preserved).
+        One loop for every tier and protocol: the flat sync round, the
+        async continuous loop and each simulated device's inner-round
+        training all run exactly this, so tiers can never drift on
+        training/weighting semantics."""
+        opt, train_step = self._get_step(lr)
+        params = base_params
+        opt_state = opt.init(params)
+        loss = np.nan
+        for _ in range(self.job.local_steps):
+            batch = self._batch_from(dataset)
+            params, opt_state, metrics = train_step(params, opt_state, batch)
+            loss = float(metrics["loss"])
+        n_examples = self.job.local_steps * self.job.batch_size
+        declared = getattr(dataset, "n_examples", None)
+        if declared is not None:             # 0 means a truly empty silo
+            n_examples = min(n_examples, int(declared))
+        return params, loss, n_examples
+
+    def run_inner_round(self, base_params, lr: float, rnd: int = 0):
+        """The round's local contribution: one ``_fit`` over the silo's
+        own data (a flat silo; device fleets raise at job setup).
+
+        ``inner_hooks`` fire at the boundary; a hook may raise
+        ``InnerRoundAborted`` to kill this silo's round before anything
+        is trained or posted.
+        """
+        for hook in list(self.inner_hooks):
+            hook(self.client_id, rnd, "enter")
+        result = self._fit(self.dataset, base_params, lr)
+        for hook in list(self.inner_hooks):
+            hook(self.client_id, rnd, "exit")
+        return result
+
+    def _do_round(self, status) -> str:
+        rnd, hp = status["round"], status["hp_index"]
+        if self.round_done >= rnd and self.hp_seen == hp:
+            return "round_already_done"
+        base = f"{self.ns}/round/{hp}/{rnd}"
+        tel = self.telemetry
+        with tel.span("client.fetch", cat="client", actor=self.client_id,
+                      run_id=self.run_id, attrs={"round": rnd}):
+            msg = self.comm.fetch(f"{base}/global", broadcast=True)
+        if msg is None:
+            return "waiting_global"
+        base_params = params_from_numpy(msg["params"], self.device)
+        try:
+            with tel.span("client.train", cat="client",
+                          actor=self.client_id, run_id=self.run_id,
+                          attrs={"round": rnd}) as sp:
+                params, loss, n_examples = self.run_inner_round(
+                    base_params, float(status.get("lr", self.job.lr)), rnd)
+                sp.set(loss=float(loss))
+        except InnerRoundAborted:
+            # a boundary hook killed this silo's round (tier-aware fault
+            # injection): vanish without posting — the server's dropout
+            # machinery takes it from here
+            return "inner_round_aborted"
+        comp_sp = tel.span("client.compress", cat="client",
+                           actor=self.client_id, run_id=self.run_id,
+                           attrs={"round": rnd})
+        comp_sp.__enter__()
+        if self.job.secure_aggregation and self.job.compression != "none":
+            # masked-quantized plane (DESIGN.md §Composable privacy): the
+            # error-feedback compressor quantizes the weighted packed
+            # *delta* onto the cohort-common fixed grid, optionally adds
+            # integer-domain DP noise, and masks the widened stream mod
+            # 2**mbits against *this round's* cohort — the server's
+            # modular sum cancels the masks bit-exactly and decodes one
+            # cohort total. Pre-scaling by n_examples/weight_denom keeps
+            # weighted FedAvg exact under the uniform modular sum, same
+            # as the fp32 masked plane below.
+            from repro_torch.core.protocol import pack_delta
+            round_cohort = sorted(msg.get("cohort") or self.cohort)
+            weight = n_examples / float(
+                msg.get("weight_denom")
+                or (self.job.local_steps * self.job.batch_size))
+            if self.hp_seen != hp:
+                self._ef.reset()
+            delta = pack_delta(params, base_params)
+            self._packed_size = int(delta.numel())
+            payload = {"comp": self._ef.step_masked(
+                           delta, weight=weight, client_id=self.client_id,
+                           cohort=round_cohort,
+                           pair_secret=self.pair_secret),
+                       "n_examples": n_examples, "train_loss": loss}
+        elif self.job.secure_aggregation:
+            # packed data plane: flatten once, mask the whole buffer in one
+            # vectorized pass, post the (T,) fp32 buffer — the server never
+            # sees per-tensor structure of the masked update. Masks are
+            # derived against *this round's* cohort (it shrinks when peers
+            # drop out), and the update is pre-scaled by
+            # n_examples/weight_denom so the server's uniform-weight sum
+            # is exact weighted FedAvg (masks cancel only under equal
+            # server-side weights).
+            round_cohort = sorted(msg.get("cohort") or self.cohort)
+            weight = n_examples / float(
+                msg.get("weight_denom")
+                or (self.job.local_steps * self.job.batch_size))
+            buf, _ = pack_pytree(params)
+            self._packed_size = int(buf.shape[0])
+            masked = secure_agg.mask_packed(
+                buf * weight, self.client_id, round_cohort,
+                self.pair_secret, device=self.device)
+            payload = {"packed": masked.cpu().numpy(),
+                       "n_examples": n_examples, "train_loss": loss}
+        elif self.job.compression != "none":
+            # compressed data plane: post the error-feedback-corrected,
+            # lossy-coded packed *delta* (the server reconstructs
+            # base + weighted-mean delta — algebraically the same FedAvg).
+            # A hyperparameter restart jumps the global back to init, so
+            # the carried residual is stale and is dropped with it.
+            from repro_torch.core.protocol import pack_delta
+            if self.hp_seen != hp:
+                self._ef.reset()
+            payload = {"comp": self._ef.step(pack_delta(params,
+                                                        base_params)),
+                       "n_examples": n_examples, "train_loss": loss}
+        else:
+            payload = {"params": params_to_numpy(params),
+                       "n_examples": n_examples, "train_loss": loss}
+        comp_sp.__exit__(None, None, None)
+        with tel.span("client.post", cat="client", actor=self.client_id,
+                      run_id=self.run_id, attrs={"round": rnd}):
+            self.comm.post(f"{base}/update/{self.client_id}", payload)
+        self.round_done, self.hp_seen = rnd, hp
+        self.metadata.record_provenance(
+            actor=self.client_id, operation="local_train",
+            subject=f"{self.run_id}/r{rnd}", outcome="update_posted",
+            details={"loss": loss, "masked": self.job.secure_aggregation})
+        return "update_posted"
+
+    def _do_async(self, status) -> str:
+        """Continuous-train loop of async buffered jobs — not ported."""
+        raise NotImplementedError(f"the async client loop {NOT_PORTED}")
+
+    def _do_repair(self, status) -> str:
+        """Dropout repair (DESIGN.md §Dropout-tolerant rounds): re-derive
+        my pairwise masks against the dropped peers and post the packed
+        correction buffer so the server can telescope the survivor sum."""
+        rnd, hp = status["round"], status["hp_index"]
+        base = f"{self.ns}/round/{hp}/{rnd}"
+        info = self.comm.fetch(f"{base}/dropout", broadcast=True)
+        if info is None:
+            return "waiting_dropout"
+        key = (hp, rnd, info["epoch"])
+        if self._repair_done == key:
+            return "repair_already_done"
+        if self.client_id not in info["survivors"]:
+            return "not_a_survivor"
+        size = self._packed_size
+        if size is None:                     # lost state? derive the length
+            glob = self.comm.fetch(f"{base}/global",  # from the round's
+                                   broadcast=True)    # global model
+            if glob is None:
+                return "waiting_global_repair"
+            size = self._packed_size = int(sum(
+                np.asarray(l).size
+                for l in _tree.leaves(glob["params"])))
+        if self.job.compression != "none":
+            # masked-quantized plane: the correction is an integer mask
+            # stream over the padded buffer, mod the same modulus both
+            # endpoints derive from the *round* cohort (survivors plus
+            # dropped — the cohort the orphaned masks were drawn against)
+            from repro_torch.core import compression
+            tpad = size + (-size) % compression.CHUNK
+            mbits = secure_agg.mask_modulus_bits(
+                len(info["survivors"]) + len(info["dropped"]),
+                self.job.quant_bits)
+            corr = secure_agg.int_repair_correction(
+                tpad, self.client_id, info["dropped"], self.pair_secret,
+                mbits, device=self.device)
+            wire_dtype = np.uint16 if mbits <= 16 else np.uint32
+            # the uint32 tensor's bits, viewed on the host as uint32
+            corr = corr.view(torch.int32).cpu().numpy().view(np.uint32)
+            payload = {"correction": (corr & np.uint32((1 << mbits) - 1)
+                                      ).astype(wire_dtype),
+                       "mbits": mbits}
+        else:
+            corr = secure_agg.repair_correction(
+                size, self.client_id, info["dropped"], self.pair_secret,
+                device=self.device)
+            payload = {"correction": corr.cpu().numpy()}
+        self.comm.post(f"{base}/repair/{info['epoch']}/{self.client_id}",
+                       payload)
+        self._repair_done = key
+        self.metadata.record_provenance(
+            actor=self.client_id, operation="mask_repair",
+            subject=f"{self.run_id}/r{rnd}", outcome="correction_posted",
+            details={"dropped": list(info["dropped"]),
+                     "epoch": info["epoch"]})
+        return "repair_posted"
+
+    def _eval_params(self, params, batches: int) -> float:
+        losses = []
+        for _ in range(batches):
+            batch = self._local_batch()
+            loss, _ = self._loss_jit(params, batch)
+            losses.append(float(loss))
+        return float(np.mean(losses))
+
+    def _do_eval(self, status) -> str:
+        rnd, hp = status["round"], status["hp_index"]
+        if self.eval_done >= rnd and self.eval_hp == hp:
+            return "eval_already_done"
+        base = f"{self.ns}/round/{hp}/{rnd}"
+        # Model Evaluator: private held-out batches on the latest global
+        # (the new aggregate is distributed next round; this round's global
+        # is the model this client can evaluate without a push)
+        rel = self.comm.fetch(f"{base}/global", broadcast=True)
+        if rel is None:
+            return "waiting_global_eval"
+        params = params_from_numpy(rel["params"], self.device)
+        eval_loss = self._eval_params(params, self.config.eval_batches)
+        self.comm.post(f"{base}/eval/{self.client_id}",
+                       {"eval_loss": eval_loss})
+        self.eval_done, self.eval_hp = rnd, hp
+        return "eval_posted"
+
+    # ------------------------------------------------------------------
+    # Client Model Deployer (paper §VI)
+    # ------------------------------------------------------------------
+    def _do_deploy(self) -> str:
+        if self.deployed_digest is not None:
+            return self._monitor_deployed()
+        rel = self.comm.fetch(f"{self.ns}/release", broadcast=True)
+        blob = self.comm.fetch(f"{self.ns}/release/params",
+                               broadcast=True)
+        if rel is None or blob is None:
+            return "waiting_release"
+        params = params_from_numpy(blob["params"], self.device)
+        # --- Model Personalization -------------------------------------
+        personalized = self._personalize(params)
+        # --- Decision Maker ---------------------------------------------
+        eval_loss = self._eval_params(personalized,
+                                      self.config.eval_batches)
+        if eval_loss <= self.config.deploy_threshold:
+            self.deployed_params = personalized
+            self.deployed_digest = pytree_digest(personalized)
+            self.metadata.record_provenance(
+                actor=self.client_id, operation="deploy_model",
+                subject=blob["digest"], outcome="deployed",
+                details={"eval_loss": eval_loss,
+                         "personalized_digest": self.deployed_digest})
+            return "deployed"
+        self._notify(
+            f"model rejected by decision maker: eval {eval_loss:.3f} > "
+            f"threshold {self.config.deploy_threshold}")
+        self.metadata.record_provenance(
+            actor=self.client_id, operation="deploy_model",
+            subject=blob["digest"], outcome="rejected",
+            details={"eval_loss": eval_loss})
+        self.deployed_digest = "rejected"
+        return "rejected"
+
+    def _personalize(self, params):
+        if self.config.personalization_steps <= 0:
+            return params
+        opt, step = shared_step(self.job.arch, self.job.reduced,
+                                PERSONALIZE, 1e-4, self.device)
+        opt_state = opt.init(params)
+        for _ in range(self.config.personalization_steps):
+            params, opt_state, _ = step(params, opt_state,
+                                        self._local_batch())
+        return params
+
+    def _monitor_deployed(self) -> str:
+        """Model Monitoring: fixed test set, alert past threshold."""
+        if self.deployed_params is None:
+            return "nothing_deployed"
+        if self._fixed_eval_batch is None:
+            self._fixed_eval_batch = self._local_batch()
+        loss, _ = self._loss_jit(self.deployed_params,
+                                 self._fixed_eval_batch)
+        entry = {"eval_loss": float(loss)}
+        self.monitor_history.append(entry)
+        if float(loss) > self.config.monitor_threshold:
+            self._notify(f"deployed model degraded: {float(loss):.3f} > "
+                         f"{self.config.monitor_threshold}")
+        return "monitored"
+
+    def _notify(self, message: str):
+        """Trigger administrator notification (SAAM task 39)."""
+        self.notifications.append(message)
+        self.metadata.record_provenance(
+            actor=self.client_id, operation="notify_admin", subject="alert",
+            outcome="raised", details={"message": message})
+
+    # ------------------------------------------------------------------
+    # Inference Manager + Model Subscription API (SAAM tasks 35/40)
+    # ------------------------------------------------------------------
+    def predict(self, tokens: np.ndarray, n_steps: int = 4) -> np.ndarray:
+        """Serve the deployed model: greedy continuation of ``tokens``."""
+        if self.deployed_params is None:
+            raise RuntimeError("no model deployed")
+        m = self.model
+        params = self.deployed_params
+        B, S = tokens.shape
+        cache_len = m.cache_len_for(S + n_steps)
+        batch = {"tokens": torch.from_numpy(np.asarray(tokens))}
+        out = []
+        with torch.no_grad():
+            logits, cache = m.prefill(params, batch, cache_len)
+            tok = torch.argmax(logits, -1).to(torch.int32)
+            for i in range(n_steps):
+                out.append(tok.cpu().numpy()[:, 0])
+                pos = torch.full((B, 1), S + i, dtype=torch.int32,
+                                 device=self.device)
+                logits, cache = m.decode_step(params, cache, tok, pos)
+                tok = torch.argmax(logits, -1).to(torch.int32)
+        return np.stack(out, axis=1)
+
+
+class OversubscribedError(RuntimeError):
+    """A silo was asked to serve more concurrent jobs than it declared."""
+
+
+class ClientAgent:
+    """Silo-side job agent (DESIGN.md §Federation scheduler).
+
+    One agent per silo: it owns the silo's single identity — client id,
+    device token, communicator — and multiplexes it across the concurrent
+    FL jobs the federation scheduler admitted onto this silo, one
+    ``FLClientNode`` per run. ``capacity`` is the silo's declared ceiling
+    on concurrent local trainings; ``attach`` refuses to exceed it, so
+    even a buggy scheduler cannot oversubscribe a silo from the client
+    side. ``tick_every`` models silo-side poll latency (a slow silo polls
+    the board every k-th scheduler pass) — the event-driven server loop
+    skips runs that are only waiting on such silos.
+    """
+
+    def __init__(self, client_id: str, comm: ClientCommunicator, dataset,
+                 *, capacity: int = 1, config: Optional[ClientConfig] = None,
+                 metadata: Optional[MetadataStore] = None,
+                 tick_every: int = 1, device=DEFAULT_DEVICE):
+        self.client_id = client_id
+        self.device = resolve(device)
+        self.comm = comm
+        self.dataset = dataset
+        self.capacity = int(capacity)
+        self.config = config
+        # `is None`, not truthiness (the thrice-fixed bug class, now
+        # guarded by tests/test_truthiness_guard.py): the scheduler hands
+        # every agent the federation's shared — and initially empty,
+        # hence falsy — MetadataStore; `or` would silently replace it and
+        # split this silo's provenance off the shared trail
+        self.metadata = MetadataStore() if metadata is None else metadata
+        self.tick_every = max(1, int(tick_every))
+        self.nodes: Dict[str, FLClientNode] = {}    # run_id -> node (kept
+        self.active: List[str] = []                 # after release, for
+        self.ticks = 0                              # audit/inspection)
+
+    @property
+    def load(self) -> int:
+        return len(self.active)
+
+    def node(self, run_id: str) -> FLClientNode:
+        return self.nodes[run_id]
+
+    def attach(self, run_id: str, cohort: List[str], pair_secret: bytes, *,
+               dataset=None, config: Optional[ClientConfig] = None
+               ) -> FLClientNode:
+        """Start (or resume) serving a run. Reuses the run's existing node
+        on re-admission so pipeline state (round markers, deployment)
+        survives suspension."""
+        if run_id not in self.active:
+            if self.load >= self.capacity:
+                raise OversubscribedError(
+                    f"silo {self.client_id} already serves {self.load} "
+                    f"concurrent jobs (declared capacity {self.capacity})")
+            self.active.append(run_id)
+        if run_id not in self.nodes:
+            self.nodes[run_id] = FLClientNode(
+                self.client_id, self.comm,
+                dataset if dataset is not None else self.dataset,
+                run_id, cohort, pair_secret,
+                config=config or self.config, metadata=self.metadata,
+                device=self.device)
+        return self.nodes[run_id]
+
+    def release(self, run_id: str):
+        """Stop serving a run (completion, suspension, or dropout). The
+        node object stays around for inspection and future re-attach."""
+        if run_id in self.active:
+            self.active.remove(run_id)
+
+    def tick(self, scheduler_pass: Optional[int] = None) -> str:
+        if scheduler_pass is not None and scheduler_pass % self.tick_every:
+            return "throttled"
+        self.ticks += 1
+        for run_id in list(self.active):
+            try:
+                self.nodes[run_id].tick()
+            except PermissionError:
+                # identity revoked mid-run: this silo is out of the
+                # federation. Stop serving every run (each job's dropout
+                # machinery handles the disappearance); one revoked silo
+                # must not crash the whole in-process loop.
+                self.metadata.record_provenance(
+                    actor=self.client_id, operation="agent_revoked",
+                    subject=run_id, outcome="detached",
+                    details={"runs": list(self.active)})
+                self.active.clear()
+                return "revoked"
+        return "ticked" if self.active else "idle"

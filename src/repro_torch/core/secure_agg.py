@@ -213,11 +213,13 @@ def u32_bits(z, device=None) -> torch.Tensor:
     int32 tensor — as an int32 tensor of its 32-bit pattern on ``device``
     (default: where it lies)."""
     if isinstance(z, np.ndarray):
+        # "W": a read-only array (a decoded board message) is copied,
+        # torch wants writable memory
         if z.dtype == np.uint16:      # ship 2 bytes a value, widen there
-            t = torch.from_numpy(np.ascontiguousarray(z).view(np.int16))
+            t = torch.from_numpy(np.require(z, requirements="CW")
+                                 .view(np.int16))
             return t.to(device or t.device).to(torch.int32) & 0xFFFF
-        z = torch.from_numpy(np.ascontiguousarray(z, np.uint32)
-                             .view(np.int32))
+        z = torch.from_numpy(np.require(z, np.uint32, "CW").view(np.int32))
     if z.dtype not in (torch.uint32, torch.int32):
         raise TypeError(f"not a residue stream dtype: {z.dtype}")
     return z.to(device or z.device).view(torch.int32)

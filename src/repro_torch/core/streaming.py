@@ -22,13 +22,22 @@ memory is O(T + B*T) whatever the cohort size:
   come from the int8 rows on the host in f64, as in the reference.
 * ``TopkSink`` — sparse (index, value) adds into a (T,) f32 accumulator.
 
-Not ported yet: the mesh (T split across devices, ``sharding/agg.py``)
-and the telemetry spans, which come with the control plane. The sinks
-keep ``fold_batches`` and ``peak_bytes``.
+The protocol-facing wrappers come with them: ``StreamedUpdates`` (the
+fold-on-arrival cohort the collect phase hands the aggregator),
+``LazyCohort`` and ``LazyView`` (decrypt-on-access board views) and the
+``CORRECTIONS_FOLDED`` sentinel of the streamed repair.
+
+Telemetry: with a ``telemetry`` bundle each flush and each decode runs
+under a ``kernel_span`` (``<kernel>_stream``) and waits for the card, as
+the reference blocks on its result, so the span holds the kernel's time;
+each flush bumps ``agg.stream_fold_batches`` and folds its working-set
+high-water mark into the ``agg.accumulator_peak_bytes`` gauge. Not
+ported: the mesh (T split across devices, ``sharding/agg.py``).
 """
 from __future__ import annotations
 
-from typing import Dict, Iterable, Optional, Sequence
+import contextlib
+from typing import Callable, Dict, Iterable, Optional, Sequence
 
 import numpy as np
 import torch
@@ -44,6 +53,21 @@ _M32 = 0xFFFFFFFF
 
 DEFAULT_STREAM_BATCH = 8
 
+GAUGE_PEAK_BYTES = "agg.accumulator_peak_bytes"
+COUNTER_FOLD_BATCHES = "agg.stream_fold_batches"
+
+
+class _CorrectionsFolded:
+    """Sentinel: the repair phase already streamed the corrections into
+    the pending sink (fold-on-arrival), so the aggregate step must not
+    fold them again — but the round still commits as repaired."""
+
+    def __repr__(self):
+        return "<corrections already folded>"
+
+
+CORRECTIONS_FOLDED = _CorrectionsFolded()
+
 
 class _SinkBase:
     """Shared staging/flush bookkeeping of the streaming sinks."""
@@ -51,17 +75,45 @@ class _SinkBase:
     plane = "?"
 
     def __init__(self, t: int, *, batch: int = DEFAULT_STREAM_BATCH,
-                 device=DEFAULT_DEVICE):
+                 device=DEFAULT_DEVICE, telemetry=None,
+                 run_id: Optional[str] = None):
         if t <= 0:
             raise ValueError("sink needs a positive buffer size")
         self.t = int(t)
         self.batch = max(1, int(batch))
         self.device = resolve(device)
+        self.telemetry = telemetry
+        self.run_id = run_id
         self.n_folded = 0            # net clients folded (unfolds subtract)
         self.fold_batches = 0
         self.peak_bytes = 0
         self._staging: list = []
         self._finalized = False
+
+    # -- telemetry ------------------------------------------------------
+    @contextlib.contextmanager
+    def _span(self, kernel: str):
+        """The reduction under ``kernel_span(<kernel>_stream)``; waits for
+        the card before the span closes."""
+        if self.telemetry is None:
+            yield
+            return
+        with self.telemetry.kernel_span(
+                f"{kernel}_stream", run_id=self.run_id, plane=self.plane,
+                cohort=str(self.n_folded)):
+            yield
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+
+    def _note_flush(self, staged_bytes: int):
+        self.fold_batches += 1
+        self.peak_bytes = max(self.peak_bytes,
+                              self.accumulator_bytes + staged_bytes)
+        if self.telemetry is not None:
+            m = self.telemetry.metrics
+            m.counter(COUNTER_FOLD_BATCHES, plane=self.plane).inc()
+            g = m.gauge(GAUGE_PEAK_BYTES, plane=self.plane)
+            g.set(max(g.read(), self.peak_bytes))
 
     @property
     def accumulator_bytes(self) -> int:
@@ -80,9 +132,7 @@ class _SinkBase:
         staged, self._staging = self._staging, []
         staged_bytes = sum(self._row_bytes(s) for s in staged)
         self._reduce(staged)
-        self.fold_batches += 1
-        self.peak_bytes = max(self.peak_bytes,
-                              self.accumulator_bytes + staged_bytes)
+        self._note_flush(staged_bytes)
 
     def _row_bytes(self, item) -> int:
         raise NotImplementedError
@@ -142,14 +192,15 @@ class MaskedF32Sink(_SinkBase):
         x = torch.stack([b for b, _ in staged])      # contiguous (B, T)
         ws = torch.tensor([w for _, w in staged], dtype=torch.float32,
                           device=self.device)
-        s = masked_sum(x, ws)
-        if self._acc is None:
-            self._acc = s
-        else:
-            # in place: the reference's donated ``jax.jit`` add
-            # (``acc + s`` with ``donate_argnums=0``) reuses the
-            # accumulator buffer; ``add_`` is the same thing eagerly
-            self._acc.add_(s)
+        with self._span("masked_sum"):
+            s = masked_sum(x, ws)
+            if self._acc is None:
+                self._acc = s
+            else:
+                # in place: the reference's donated ``jax.jit`` add
+                # (``acc + s`` with ``donate_argnums=0``) reuses the
+                # accumulator buffer; ``add_`` is the same thing eagerly
+                self._acc.add_(s)
 
     def finalize(self) -> torch.Tensor:
         """Flush what is staged; the (T,) fp32 sum on the sink's device."""
@@ -213,13 +264,14 @@ class ModularSink(_SinkBase):
         return item[0].numel() * 4
 
     def _reduce(self, staged):
-        for z, subtract in staged:
-            row = u32_to_i64(z)
-            if subtract:
-                self._acc.sub_(row)
-            else:
-                self._acc.add_(row)
-            self._acc.bitwise_and_(_M32)
+        with self._span("modular_sum"):
+            for z, subtract in staged:
+                row = u32_to_i64(z)
+                if subtract:
+                    self._acc.sub_(row)
+                else:
+                    self._acc.add_(row)
+                self._acc.bitwise_and_(_M32)
 
     def finalize(self) -> torch.Tensor:
         """Flush; the (t,) f32 decoded cohort sum on the sink's device."""
@@ -228,8 +280,9 @@ class ModularSink(_SinkBase):
         scales = torch.full((self.tp // CHUNK,), self.grid,
                             dtype=torch.float32, device=self.device)
         z = u32_from_i64(self._acc).reshape(1, self.tp)
-        return masked_dequant_reduce(z, scales,
-                                     modulus_bits=self.mbits)[:self.t]
+        with self._span("masked_dequant_reduce"):
+            out = masked_dequant_reduce(z, scales, modulus_bits=self.mbits)
+        return out[:self.t]
 
 
 class QuantSink(_SinkBase):
@@ -269,8 +322,10 @@ class QuantSink(_SinkBase):
             -1, dtype=np.float64)
         self.norms[cid] = float(
             np.sqrt((qsq * scales.astype(np.float64) ** 2).sum()))
-        self._stage((torch.from_numpy(q).to(self.device),
-                     torch.from_numpy(scales).to(self.device),
+        self._stage((torch.from_numpy(np.require(q, requirements="W"))
+                     .to(self.device),
+                     torch.from_numpy(np.require(scales, requirements="W"))
+                     .to(self.device),
                      float(weight)))
         self.total_weight += float(weight)
         self.n_folded += 1 if weight > 0 else -1
@@ -287,11 +342,12 @@ class QuantSink(_SinkBase):
         scales = torch.stack([s[1] for s in staged])
         ws = torch.tensor([s[2] for s in staged], dtype=torch.float32,
                           device=self.device)
-        s = dequant_reduce(q, scales, ws)
-        if self._acc is None:
-            self._acc = s
-        else:
-            self._acc.add_(s)
+        with self._span("dequant_reduce"):
+            s = dequant_reduce(q, scales, ws)
+            if self._acc is None:
+                self._acc = s
+            else:
+                self._acc.add_(s)
 
     def finalize(self) -> torch.Tensor:
         self._flush()
@@ -324,8 +380,10 @@ class TopkSink:
         return 4 * self.t
 
     def fold(self, cid: str, idx, val, weight: float):
-        val = torch.as_tensor(val, dtype=torch.float32).to(self.device)
-        idx = torch.as_tensor(idx).to(self.device, torch.int64)
+        val = torch.from_numpy(np.require(val, np.float32, "W")).to(
+            self.device)
+        idx = torch.from_numpy(np.require(idx, requirements="W")).to(
+            self.device, torch.int64)
         self._acc[idx] += torch.tensor(weight, dtype=torch.float32) * val
         self.norms[cid] = float(torch.linalg.vector_norm(
             val.to(torch.float64)))
@@ -355,7 +413,8 @@ def _masked_contract(m: dict, expect: Optional[tuple]) -> tuple:
 
 def stream_reduce_masked(msgs: Iterable[dict], *, corrections=None,
                          batch: int = DEFAULT_STREAM_BATCH,
-                         device=DEFAULT_DEVICE) -> torch.Tensor:
+                         device=DEFAULT_DEVICE, telemetry=None,
+                         run_id: Optional[str] = None) -> torch.Tensor:
     """Streaming ``compression.reduce_masked``: contract checks, then the
     (T,) f32 decoded sum, bit-exact whatever the order. ``corrections``
     is an iterable aligned with ``msgs`` (or None)."""
@@ -369,7 +428,8 @@ def stream_reduce_masked(msgs: Iterable[dict], *, corrections=None,
         if sink is None:
             t, mbits, grid = contract
             sink = ModularSink(t, mbits=mbits, grid=grid, batch=batch,
-                               device=dev)
+                               device=dev, telemetry=telemetry,
+                               run_id=run_id)
         sink.fold(m["z"])
         if corr_iter is not None:
             try:
@@ -393,7 +453,8 @@ def stream_reduce_masked(msgs: Iterable[dict], *, corrections=None,
 def stream_reduce_compressed(msgs: Iterable[dict], weights, *,
                              return_norms: bool = False,
                              batch: int = DEFAULT_STREAM_BATCH,
-                             device=DEFAULT_DEVICE):
+                             device=DEFAULT_DEVICE, telemetry=None,
+                             run_id: Optional[str] = None):
     """Streaming ``compression.reduce_compressed``: weights are used as
     given, norms ride along per fold; ``weights`` is indexable and
     aligned with the iteration order of ``msgs``."""
@@ -419,7 +480,8 @@ def stream_reduce_compressed(msgs: Iterable[dict], weights, *,
             sink.fold(str(i), m["idx"], m["val"], w[i])
         else:
             if sink is None:
-                sink = QuantSink(t, batch=batch, device=dev)
+                sink = QuantSink(t, batch=batch, device=dev,
+                                 telemetry=telemetry, run_id=run_id)
             sink.fold(str(i), quantized_values(m), m["scales"], w[i])
         i += 1
     if sink is None:
@@ -433,7 +495,8 @@ def stream_reduce_compressed(msgs: Iterable[dict], weights, *,
 def stream_masked_packed(buffers: Iterable, weights: Optional[Sequence]
                          = None, *, corrections=None,
                          batch: int = DEFAULT_STREAM_BATCH,
-                         device=DEFAULT_DEVICE) -> torch.Tensor:
+                         device=DEFAULT_DEVICE, telemetry=None,
+                         run_id: Optional[str] = None) -> torch.Tensor:
     """Streaming ``secure_agg.aggregate_masked_packed``: same defaults
     (uniform mean when ``weights`` is None, else the weights as given),
     corrections fold as negative-weight rows."""
@@ -449,10 +512,117 @@ def stream_masked_packed(buffers: Iterable, weights: Optional[Sequence]
     for i, b in enumerate(bufs):
         if sink is None:
             sink = MaskedF32Sink(int(np.prod(b.shape)), batch=batch,
-                                 device=device)
+                                 device=device, telemetry=telemetry,
+                                 run_id=run_id)
         sink.fold(b, w[i])
         if corr_iter is not None:
             sink.fold_correction(next(corr_iter), w[i])
     if sink is None:
         raise ValueError("no masked buffers to reduce")
     return sink.finalize()
+
+
+# ---------------------------------------------------------------------------
+# protocol-facing wrappers: fold-on-arrival cohorts and lazy board views
+# (copies of the reference's)
+# ---------------------------------------------------------------------------
+class LazyView:
+    """Read-through view over a lazily-decrypted cohort mapping: each
+    ``view[cid]`` decrypts that client's payload *now* and extracts one
+    key — nothing is cached, so a batched fold loop holds at most one
+    decrypted payload per staged row."""
+
+    def __init__(self, msgs, key: str):
+        self._msgs = msgs
+        self._key = key
+
+    def __getitem__(self, cid):
+        return self._msgs[cid][self._key]
+
+    def __iter__(self):
+        return iter(self._msgs)
+
+    def __len__(self):
+        return len(self._msgs)
+
+    def __contains__(self, cid):
+        return cid in self._msgs
+
+    def keys(self):
+        return self._msgs.keys()
+
+
+class StreamedUpdates:
+    """The ``updates`` mapping ``_aggregate_and_advance`` receives when
+    the collect phase folded the cohort on arrival: cids map to the
+    opaque sink (the buffers themselves are gone — that is the point).
+    Supports the mapping surface the server/protocol layer touches
+    (membership, iteration, len) and ``restrict_to`` for mid-repair
+    dropouts."""
+
+    def __init__(self, sink, plane: str):
+        self.sink = sink
+        self.plane = plane
+        self._cids: Dict[str, bool] = {}
+
+    def note_folded(self, cid: str):
+        self._cids[cid] = True
+
+    def __iter__(self):
+        return iter(self._cids)
+
+    def __len__(self):
+        return len(self._cids)
+
+    def __contains__(self, cid):
+        return cid in self._cids
+
+    def keys(self):
+        return self._cids.keys()
+
+    def __getitem__(self, cid):
+        if cid not in self._cids:
+            raise KeyError(cid)
+        return self.sink                 # opaque handle; already folded
+
+    def restrict_to(self, cohort, refetch: Callable[[str], object]):
+        """Unfold members that dropped after being folded: ``refetch``
+        returns the client's original heavy payload from the board (still
+        posted — round GC runs at commit), and the sink backs it out."""
+        for cid in [c for c in self._cids if c not in set(cohort)]:
+            payload = refetch(cid)
+            if self.plane == "masked_int":
+                self.sink.unfold(payload["z"])
+            else:
+                self.sink.unfold(payload)
+            del self._cids[cid]
+
+
+class LazyCohort:
+    """Decrypt-on-access cohort mapping: ``mapping[cid]`` runs
+    ``comm.collect`` *at access time* instead of eagerly materializing
+    every decrypted payload. ``_poll_cohort(..., lazy=True)`` returns
+    this so the repair fold can stream corrections one batch at a time —
+    the O(N x T) dict of decrypted correction buffers never exists."""
+
+    def __init__(self, comm, paths: Dict[str, str]):
+        self._comm = comm
+        self._paths = dict(paths)
+
+    def __getitem__(self, cid):
+        msg = self._comm.collect(self._paths[cid], cid)
+        if msg is None:
+            raise KeyError(cid)
+        return msg
+
+    def __iter__(self):
+        return iter(self._paths)
+
+    def __len__(self):
+        return len(self._paths)
+
+    def __contains__(self, cid):
+        return cid in self._paths
+
+    def keys(self):
+        return self._paths.keys()

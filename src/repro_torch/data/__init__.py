@@ -1,2 +1,3 @@
-from repro_torch.data.synthetic import (SiloDataset,  # noqa: F401
+from repro_torch.data.synthetic import (ForecastSiloDataset,  # noqa: F401
+                                        SiloDataset, forecasting_series,
                                         make_silo_datasets, silo_key)

@@ -49,7 +49,9 @@ def test_sources_name_no_jax_and_no_repro():
     bad = re.compile(r"^\s*(import\s+jax|from\s+jax|import\s+repro\.|"
                      r"from\s+repro\.|from\s+repro\s+import|import\s+repro\s*$)",
                      re.M)
-    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                         ROOT / "examples" /
+                                         "quickstart_torch.py"]
     assert len(files) > 20
     for path in files:
         hits = bad.findall(path.read_text())
@@ -140,3 +142,48 @@ def test_import_check_covers_the_serve_slice():
               "repro_torch.kernels.ssd_scan.ops", "repro_torch.models.ssm",
               "repro_torch.launch.serve", "repro_torch.configs.hymba_1p5b"):
         assert m in mods
+
+
+CONTROL_PLANE = ("metadata", "crypto", "serialization", "telemetry",
+                 "transport", "clients", "communicator", "governance",
+                 "validation", "jobs", "reporting", "contribution",
+                 "streaming", "protocol", "server", "client", "scheduler",
+                 "simulation")
+
+
+def test_import_check_covers_the_control_plane():
+    mods = _modules()
+    for m in CONTROL_PLANE:
+        assert f"repro_torch.core.{m}" in mods
+
+
+def test_socket_board_child_runs_the_port_module():
+    """``SocketTransportServer`` starts a fresh interpreter on the port's
+    ``_serve_main``; that command line, run with an import check in place
+    of the accept loop, pulls in neither JAX nor the reference."""
+    from repro_torch.core.transport import (SocketTransport,
+                                            SocketTransportServer)
+    server = SocketTransportServer()
+    server.start()
+    try:
+        argv = Path(f"/proc/{server._proc.pid}/cmdline").read_bytes() \
+            .split(b"\0")
+        code = argv[argv.index(b"-c") + 1].decode()
+        assert code.startswith(
+            "from repro_torch.core.transport import _serve_main; ")
+        t = SocketTransport((server.host, server.port))
+        t.put("runs/x/a", b"payload", "client-a")
+        assert t.get("runs/x/a", reader="server") == b"payload"
+        t.close()
+    finally:
+        server.stop()
+    check = code.split(";")[0] + "\n" + (
+        "import sys\n"
+        "bad = sorted(k for k in sys.modules if k == 'jax' or "
+        "k.startswith(('jax.', 'jaxlib')) or k == 'repro' or "
+        "k.startswith('repro.'))\n"
+        "sys.exit(1 if bad else 0)\n")
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    res = subprocess.run([sys.executable, "-c", check], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
