@@ -47,6 +47,37 @@ Phases (every failed check exits non-zero):
    seconds by telemetry span (``phase:*``, ``client.*``,
    ``kernel:masked_sum*``), the board's bytes and the host codec seconds
    of one 465.6 MB message.
+5c. ``fleet``: ``windco``'s ``InnerRoundEngine`` driven directly over a
+   10,000-device fleet (dropout 0.05, clip 15.0), two inner rounds at
+   device cohorts 8 and 16, each device 3 AdamW steps of 8 x 256 from
+   phase 4's init; each clipped delta folds into ``MaskedF32Sink`` (K1).
+   Gates: the engine's mean delta within 1e-6 of the plain twin (the same
+   deltas summed in f64 on the card, divided by the f64 weight), peak
+   fold bytes at cohort 16 at most 1.01x those at cohort 8, sampled ==
+   dropped + folded, K1 launched at least ceil(folded / 8) times, and a
+   one-device fleet at cohort 1 bitwise equal to ``_fit`` on a twin
+   dataset. Prints seconds and devices/s a round, the median
+   ``device.train`` ms, the K1 fold ms (``kernel:masked_sum_stream``),
+   the peak fold bytes, the delta norms and how many were clipped.
+5d. ``fleet run``: ``Consortium`` over the 3 silos, each fronting a
+   10,000-device fleet (cohort 8, dropout 0.05, clip 15.0), one secure
+   round (the silos' inner folds and the server's fold through K1), then
+   evaluate, deploy and one ``predict``. Gates: done, chain intact, one
+   ``inner_round`` record a silo with 8 sampled, the global moves no
+   weight by more than 1e-2, finite losses, tokens in range, K1 launched
+   on the ``fleet`` path (5c and 5d). Prints as ``fl run`` does, with the
+   silos' devices/s and peak fold bytes.
+5e. ``async run``: ``Consortium`` with ``protocol="async_buff"`` (secure
+   aggregation off, as the job matrix requires), the silos polling every
+   1st, 2nd and 3rd scheduler pass, 2 folds a commit, 3 commits, then the
+   final evaluate, deploy and one ``predict``. Gates: done, chain intact,
+   3 commits, each commit's provenance weights positive and summing to 1
+   within 1e-12, a fold with staleness > 0, commit 0's global bitwise
+   equal to the reference's numpy fold recomputed from the messages the
+   server collected, finite losses, tokens in range; the ``async`` path
+   launches no kernel (its fold is plain PyTorch, as the reference's is
+   numpy). Prints wall, per-commit seconds, host seconds by span and the
+   board's bytes.
 6. The compressed planes at full width, on phase 4's trained silos
    (deltas = ``pack_delta(trained, init)``, T padded to Tp, a 1024
    multiple):
@@ -97,11 +128,13 @@ timed beside it (never on the path). Two launches must agree bitwise.
 
 Launch counters are reset before phase 4 and read after phase 5 (K1 and
 K2 must have run), reset before phase 5b and read after it (K1 must have
-run), reset again before phase 6a and read after 6e (K3, K4
+run), reset before 5c and read after 5d (the ``fleet`` path: K1 must
+have run), reset before 5e and read after it (the ``async`` path: no
+kernel), reset again before phase 6a and read after 6e (K3, K4
 in both variants, K5 and K1 must have run), and reset before phase 8's
 timed serve run and read after it (K6's tensor-core kernel and K7 once a
 layer, K6's f32 kernel never); the kernels
-line gives the sum of the four paths. Each phase
+line gives the sum of the six paths. Each phase
 prints its seconds and peak device memory. The line before the last is
 the ``kernels`` JSON record; the last line is the device record.
 """
@@ -825,18 +858,7 @@ def fl_phase(state, device, card: str, reduced: bool = False):
     check(toks.shape == (1, 8) and 0 <= toks.min() and toks.max() < vocab,
           f"predict returns tokens in range: {toks.tolist()}")
 
-    spans = tel.spans(run_id)
-    host: dict = {}
-    by_round: dict = {}
-    for sp in spans:
-        if sp.t1 is None:
-            continue
-        host[sp.name] = host.get(sp.name, 0.0) + (sp.t1 - sp.t0)
-        if sp.name.startswith("phase:") and sp.name not in (
-                "phase:waiting_clients", "phase:validating",
-                "phase:deploying"):
-            rnd = (sp.attrs or {}).get("round")
-            by_round[rnd] = by_round.get(rnd, 0.0) + (sp.t1 - sp.t0)
+    host, by_round = span_seconds(tel, run_id)
     stats = server.board.stats
     print(f"fl run: fedforecast-100m {'reduced' if reduced else 'full width'}"
           f", T={state['T']}, "
@@ -850,17 +872,41 @@ def fl_phase(state, device, card: str, reduced: bool = False):
           f"per-round s " + ", ".join(
               f"r{k} {v:.3f}" for k, v in sorted(by_round.items()))
           + f"; predict {s_predict:.3f} s [{card}]", flush=True)
+    print_host_seconds("fl run", host, FL_SPANS, card)
+    print_board("fl run", stats, card)
+    codec_seconds(state["masked"][SILOS[0]], card)
+
+
+def span_seconds(tel, run_id: str):
+    """Host seconds of the run's closed spans: by span name, and the
+    round phases' by round (for an async run the round is the commit)."""
+    host: dict = {}
+    by_round: dict = {}
+    for sp in tel.spans(run_id):
+        if sp.t1 is None:
+            continue
+        host[sp.name] = host.get(sp.name, 0.0) + (sp.t1 - sp.t0)
+        if sp.name.startswith("phase:") and sp.name not in (
+                "phase:waiting_clients", "phase:validating",
+                "phase:deploying"):
+            rnd = (sp.attrs or {}).get("round")
+            by_round[rnd] = by_round.get(rnd, 0.0) + (sp.t1 - sp.t0)
+    return host, by_round
+
+
+def print_host_seconds(what: str, host: dict, spans, card: str):
     keys = sorted(k for k in host if k.startswith("phase:")) + list(
-        FL_SPANS) + sorted(k for k in host
-                           if k.startswith("kernel:masked_sum"))
-    print("fl run host s: " + ", ".join(
+        spans) + sorted(k for k in host if k.startswith("kernel:masked_sum"))
+    print(f"{what} host s: " + ", ".join(
         f"{k} {host.get(k, 0.0):.3f}" for k in keys) + f" [{card}]",
         flush=True)
-    print(f"fl run board: bytes posted {stats['bytes_posted']} (clients "
+
+
+def print_board(what: str, stats: dict, card: str):
+    print(f"{what} board: bytes posted {stats['bytes_posted']} (clients "
           f"{stats['bytes_posted_clients']}), fetched "
           f"{stats['bytes_fetched']}, posts {stats['posts']}, fetches "
           f"{stats['fetches']} [{card}]", flush=True)
-    codec_seconds(state["masked"][SILOS[0]], card)
 
 
 def codec_seconds(buf, card: str):
@@ -879,6 +925,368 @@ def codec_seconds(buf, card: str):
     print(f"fl run codec: one {len(blob)} B message: to host {s_host:.3f} s, "
           f"pack {s_pack:.3f} s, encrypt {s_enc:.3f} s, decrypt "
           f"{s_dec:.3f} s, unpack {s_unpack:.3f} s [{card}]", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# phases 5c-5e: the hierarchical tier and the async buffered protocol
+# ---------------------------------------------------------------------------
+FLEET_DEVICES, FLEET_DROPOUT, FLEET_CLIP = 10_000, 0.05, 15.0
+FLEET_COHORTS = (8, 16)        # phase 5c's two inner rounds
+FLEET_RUN_COHORT = 8
+FLEET_TWIN_ATOL = 1e-6         # engine mean delta vs the f64 twin
+FLEET_PEAK_RATIO = 1.01        # peak fold bytes, cohort 16 over cohort 8
+FLEET_SPANS = ("client.fetch", "client.train", "client.inner_round",
+               "device.train", "client.compress", "client.post")
+# the silos poll every 1st, 2nd and 3rd scheduler pass; with a buffer of 2
+# the first two commits fold only fresh updates and the third folds two
+# that trained on commit 1 (tau 1), so 3 commits are the fewest that show
+# a stale fold (tests/test_torch_fl_async.py runs the same schedule)
+ASYNC_CADENCES = (1, 2, 3)
+ASYNC_BUFFER, ASYNC_COMMITS = 2, 3
+ASYNC_SPANS = ("client.train", "client.post", "async.commit")
+
+
+def fleet_job(cohort: int, reduced: bool, devices: int = FLEET_DEVICES,
+              dropout: float = FLEET_DROPOUT):
+    """A job whose silos front a device fleet (the chip-smoke contract:
+    3 AdamW steps of 8 x 256 a device, lr 3e-4)."""
+    from repro_torch.core.jobs import FLJob
+    return FLJob.from_dict({
+        "job_id": f"fleet-{cohort}", "arch": "fedforecast-100m",
+        "reduced": reduced, "rounds": 1, "local_steps": LOCAL_STEPS,
+        "batch_size": BATCH_SIZE, "lr": LR, "optimizer": "adamw",
+        "outer_optimizer": "fedavg", "aggregation": "fedavg",
+        "train_test_split": 0.2, "eval_metrics": ["loss"],
+        "secure_aggregation": False, "data_schema": None,
+        "devices_per_silo": devices, "device_cohort_size": cohort,
+        "device_dropout": dropout, "device_clip": FLEET_CLIP})
+
+
+def fleet_node(job, dataset, device, tel):
+    """``SILOS[0]``'s ``FLClientNode`` with ``job`` set up (its fleet
+    built), outside any board: the inner tier posts nothing."""
+    from repro_torch.core.client import FLClientNode
+    comm = SimpleNamespace(board=SimpleNamespace(telemetry=tel))
+    node = FLClientNode(SILOS[0], comm, dataset, "fleet", [SILOS[0]], SECRET,
+                        device=device)
+    node._setup_job(job)
+    return node
+
+
+def fleet_phase(state, device, card: str, reduced: bool = False):
+    """5c: one silo's ``InnerRoundEngine`` driven directly, at cohorts 8
+    and 16 of a 10,000-device fleet, each device training from
+    ``round_phase``'s init; each clipped delta folds into
+    ``MaskedF32Sink`` (K1). A spy on the sink's ``fold`` keeps the plain
+    twin: the same deltas summed in f64 on the card."""
+    import torch
+    from repro_torch import tree as _tree
+    from repro_torch.configs import get_config
+    from repro_torch.core import streaming
+    from repro_torch.core.client import InnerRoundEngine
+    from repro_torch.core.packing import pack_pytree
+    from repro_torch.core.telemetry import Telemetry
+    from repro_torch.data.synthetic import make_silo_datasets
+    from repro_torch.kernels.secure_agg import ops
+
+    cfg = get_config("fedforecast-100m")
+    vocab = (cfg.reduced() if reduced else cfg).vocab
+    tel = Telemetry(enabled=True, recorder_cap=1 << 20)
+    base = state["init"]
+    base_buf = pack_pytree(base)[0].double()
+    twin = {"sum": None, "weight": 0.0, "norms": []}
+    fold = streaming.MaskedF32Sink.fold
+
+    def spy(sink, buf, weight=1.0):
+        d = buf.double()
+        twin["norms"].append(float(torch.linalg.vector_norm(d)))
+        twin["sum"] = (d.mul_(weight) if twin["sum"] is None
+                       else twin["sum"].add_(d.mul_(weight)))
+        twin["weight"] += float(weight)
+        return fold(sink, buf, weight)
+
+    silo = make_silo_datasets(1, vocab=vocab, seq_len=SEQ_LEN, seed=1)[0]
+    rounds = []
+    streaming.MaskedF32Sink.fold = spy
+    try:
+        for rnd, cohort in enumerate(FLEET_COHORTS):
+            twin.update(sum=None, weight=0.0, norms=[])
+            node = fleet_node(fleet_job(cohort, reduced), silo, device, tel)
+            engine = InnerRoundEngine(node, rnd, LR, base)
+            k1 = ops.LAUNCHES["masked_sum"]
+            (params, loss, n), s = sync_seconds(engine.run)
+            k1 = ops.LAUNCHES["masked_sum"] - k1
+            check(len(engine.cohort) == cohort
+                  and len(engine.cohort) == len(engine.dropped)
+                  + engine.folded, f"round {rnd}: sampled {cohort} == "
+                  f"dropped {len(engine.dropped)} + folded {engine.folded}")
+            # (a CPU rehearsal runs K1's plain version, which counts none)
+            flushes = math.ceil(engine.folded / streaming.DEFAULT_STREAM_BATCH)
+            check(k1 >= (flushes if device.type == "cuda" else 0),
+                  f"round {rnd}: K1 launched {k1} times for "
+                  f"{engine.folded} folds")
+            check(n == twin["weight"] and math.isfinite(loss),
+                  f"round {rnd}: weight {n} == {twin['weight']}, loss {loss}")
+            got = pack_pytree(params)[0].double() - base_buf
+            err = float((got - twin["sum"] / twin["weight"]).abs().max())
+            check(err <= FLEET_TWIN_ATOL,
+                  f"round {rnd}: engine mean delta vs the f64 twin {err:.3g}")
+            norms = sorted(twin["norms"])
+            rounds.append({"cohort": cohort, "dropped": len(engine.dropped),
+                           "folded": engine.folded, "k1": k1, "err": err,
+                           "s": s, "per_sec": engine.folded / engine.elapsed,
+                           "peak": engine.peak_fold_bytes,
+                           "norm": norms[len(norms) // 2],
+                           "clipped": sum(v >= FLEET_CLIP * (1 - 1e-4)
+                                          for v in norms)})
+            del params, got, engine
+            twin["sum"] = None
+    finally:
+        streaming.MaskedF32Sink.fold = fold
+    ratio = rounds[1]["peak"] / rounds[0]["peak"]
+    check(ratio <= FLEET_PEAK_RATIO,
+          f"peak fold bytes flat in cohort: {rounds[1]['peak']} / "
+          f"{rounds[0]['peak']} = {ratio:.4f} <= {FLEET_PEAK_RATIO}")
+
+    # the single-survivor shortcut: a one-device fleet is the flat silo
+    job = fleet_job(1, reduced, devices=1, dropout=0.0)
+    silo_a, silo_b = (make_silo_datasets(1, vocab=vocab, seq_len=SEQ_LEN,
+                                         seed=1)[0] for _ in range(2))
+    engine = InnerRoundEngine(fleet_node(job, silo_a, device, tel), 0, LR,
+                              base)
+    p1, l1, n1 = engine.run()
+    p2, l2, n2 = fleet_node(job, silo_b, device, tel)._fit(silo_b, base, LR)
+    check(engine.sink is None and (l1, n1) == (l2, n2)
+          and all(torch.equal(a, b) for a, b in
+                  zip(_tree.leaves(p1), _tree.leaves(p2))),
+          "the single-survivor engine equals _fit bitwise")
+    del p1, p2
+
+    spans = tel.spans("fleet")      # the untraced rounds' spans
+    train_ms = sorted((sp.t1 - sp.t0) * 1e3 for sp in spans
+                      if sp.name == "device.train" and sp.t1 is not None)
+    fold_ms = sorted((sp.t1 - sp.t0) * 1e3 for sp in spans
+                     if sp.name == "kernel:masked_sum_stream"
+                     and sp.t1 is not None)
+
+    # one more inner round at cohort 8 under the profiler: the card's busy
+    # time against round 0's untraced seconds (8 devices each) is the
+    # fleet tier's device idle share
+    trace = None
+    if device.type == "cuda":
+        node = fleet_node(fleet_job(FLEET_COHORTS[0], reduced), silo, device,
+                          tel)
+        trace = device_ms_by_kernel(
+            lambda: InnerRoundEngine(node, 2, LR, base).run(), calls=1)
+    print(f"fleet: fedforecast-100m {'reduced' if reduced else 'full width'}"
+          f", T={state['T']}, silo {SILOS[0]}, {FLEET_DEVICES} devices, "
+          f"dropout {FLEET_DROPOUT}, clip {FLEET_CLIP}; " + "; ".join(
+              f"round {i} cohort {r['cohort']}: dropped {r['dropped']}, "
+              f"folded {r['folded']}, K1 launches {r['k1']}, vs f64 twin "
+              f"{r['err']:.3g} (atol {FLEET_TWIN_ATOL}), delta norm median "
+              f"{r['norm']:.3f}, clipped {r['clipped']}"
+              for i, r in enumerate(rounds))
+          + f"; single-survivor engine == _fit bitwise [{card}]", flush=True)
+    print("fleet: " + "; ".join(
+        f"round {i}: {r['s']:.3f} s, {r['per_sec']:.3f} devices/s, peak "
+        f"fold bytes {r['peak']}" for i, r in enumerate(rounds))
+        + f" (ratio {ratio:.4f}); device.train median "
+        f"{statistics.median(train_ms):.2f} ms, max {train_ms[-1]:.2f} ms "
+        f"over {len(train_ms)} devices; K1 fold (kernel:masked_sum_stream) "
+        f"median "
+        f"{statistics.median(fold_ms):.3f} ms over {len(fold_ms)} flushes "
+        f"[{card}]", flush=True)
+    if trace is not None:
+        busy = sum(trace.values())
+        k1 = sum(v for k, v in trace.items() if k.startswith("combine_"))
+        top = sorted(trace.items(), key=lambda kv: -kv[1])[:4]
+        print(f"fleet trace: an inner round of {FLEET_COHORTS[0]} devices: "
+              f"device busy {busy:.1f} ms against round 0's untraced "
+              f"{rounds[0]['s'] * 1e3:.1f} ms -> device idle share "
+              f"{1 - busy / (rounds[0]['s'] * 1e3):.3f}; K1 {k1:.3f} ms; top "
+              + "; ".join(f"{k[:40]} {v:.2f} ms" for k, v in top)
+              + f" [{card}]", flush=True)
+
+
+def fleet_run_phase(state, device, card: str, reduced: bool = False):
+    """5d: the hierarchical federation end to end: ``Consortium`` over the
+    3 silos, each fronting a 10,000-device fleet (cohort 8), one secure
+    outer round (``MaskedF32Sink``, K1, on the server; K1 in every silo's
+    inner fold), then evaluate, deploy and one ``predict``."""
+    from repro_torch import tree as _tree
+    from repro_torch.configs import get_config
+    from repro_torch.core import Consortium, Telemetry
+    from repro_torch.data.synthetic import make_silo_datasets
+
+    cfg = get_config("fedforecast-100m")
+    vocab = (cfg.reduced() if reduced else cfg).vocab
+    tel = Telemetry(enabled=True, recorder_cap=1 << 20)
+    con = Consortium(SILOS, seed=0, master_key=FL_MASTER_KEY, device=device,
+                     telemetry=tel, initial_params=state["init"])
+    contract = con.negotiate({
+        "arch": "fedforecast-100m", "reduced": reduced, "rounds": 1,
+        "local_steps": LOCAL_STEPS, "batch_size": BATCH_SIZE, "lr": LR,
+        "data_schema": {"vocab": vocab, "seq_len": SEQ_LEN},
+        "secure_aggregation": True, "gc_round_resources": True,
+        "devices_per_silo": FLEET_DEVICES,
+        "device_cohort_size": FLEET_RUN_COHORT,
+        "device_dropout": FLEET_DROPOUT, "device_clip": FLEET_CLIP})
+    job = con.server.job_creator.from_contract(contract)
+    datasets = make_silo_datasets(len(SILOS), vocab=vocab, seq_len=SEQ_LEN,
+                                  seed=1)
+    run_id = con.start(job, datasets)
+    phase, wall = sync_seconds(con.run_to_completion)
+    server, run = con.server, con.server.run
+    check(phase == "done", f"the fleet run ends in done (got {phase})")
+    check(server.metadata.verify_chain(), "the provenance chain verifies")
+    check(len(run.history) == 1, f"1 round committed ({len(run.history)})")
+    inner = []
+    for node in con.nodes:
+        recs = node.metadata.query(operation="inner_round")
+        check(len(recs) == 1 and recs[0]["details"]["sampled"]
+              == FLEET_RUN_COHORT == recs[0]["details"]["dropped"]
+              + recs[0]["details"]["folded"],
+              f"{node.client_id}: one inner round of {FLEET_RUN_COHORT} "
+              f"sampled: {[r['details'] for r in recs]}")
+        inner.append(recs[0]["details"])
+    g = server.store.get(run.history[0]["digest"])
+    move = max(float((x.float() - y.float()).abs().max())
+               for x, y in zip(_tree.leaves(g), _tree.leaves(state["init"])))
+    check(move <= FL_ROUND1_MOVE,
+          f"the fleet round moves a weight {move:.3g} <= {FL_ROUND1_MOVE}")
+    losses = list(run.history[0]["train_losses"].values()) + [
+        run.history[0]["mean_eval_loss"]]
+    check(all(math.isfinite(v) for v in losses), f"finite losses {losses}")
+    node = next(n for n in con.nodes if n.deployed_params is not None)
+    prompt = datasets[0].batch(1)["tokens"][:, :32]
+    toks, s_predict = sync_seconds(node.predict, prompt, 8)
+    check(toks.shape == (1, 8) and 0 <= toks.min() and toks.max() < vocab,
+          f"predict returns tokens in range: {toks.tolist()}")
+    host, by_round = span_seconds(tel, run_id)
+    width = "reduced" if reduced else "full width"
+    print(f"fleet run: fedforecast-100m {width}, {len(SILOS)} silos x "
+          f"{FLEET_DEVICES} devices, cohort "
+          f"{FLEET_RUN_COHORT}, dropout {FLEET_DROPOUT}, clip {FLEET_CLIP}, "
+          f"1 secure round; phase {phase}, chain intact; inner rounds "
+          + "; ".join(f"folded {d['folded']} dropped {d['dropped']} "
+                      f"{d['devices_per_sec']:.3f} devices/s peak fold "
+                      f"bytes {d['peak_fold_bytes']}" for d in inner)
+          + f"; moves {move:.3g}; losses {[round(v, 4) for v in losses]}; "
+          f"predict {toks.tolist()} [{card}]", flush=True)
+    print(f"fleet run: wall {wall:.3f} s over {con.scheduler.passes} passes;"
+          f" per-round s " + ", ".join(
+              f"r{k} {v:.3f}" for k, v in sorted(by_round.items()))
+          + f"; predict {s_predict:.3f} s [{card}]", flush=True)
+    print_host_seconds("fleet run", host, FLEET_SPANS, card)
+    print_board("fleet run", server.board.stats, card)
+
+
+def async_phase(state, device, card: str, reduced: bool = False):
+    """5e: the async buffered protocol end to end: ``Consortium`` with
+    ``protocol="async_buff"`` (secure aggregation off, as the job matrix
+    requires), the silos polling at cadences 1/2/3, 2 folds a commit, 3
+    commits, then the final evaluate, deploy and one ``predict``. A spy
+    on the server's ``comm.collect`` keeps commit 0's folded messages, and
+    commit 0's global is recomputed from them in numpy."""
+    import numpy as np
+    from repro_torch import tree as _tree
+    from repro_torch.configs import get_config
+    from repro_torch.convert import params_to_numpy
+    from repro_torch.core import Consortium, Telemetry
+    from repro_torch.core.packing import PackedLayout
+    from repro_torch.core.protocol import staleness_weight
+    from repro_torch.data.synthetic import make_silo_datasets
+
+    cfg = get_config("fedforecast-100m")
+    vocab = (cfg.reduced() if reduced else cfg).vocab
+    tel = Telemetry(enabled=True, recorder_cap=1 << 20)
+    con = Consortium(SILOS, seed=0, master_key=FL_MASTER_KEY, device=device,
+                     telemetry=tel, initial_params=state["init"])
+    contract = con.negotiate({
+        "arch": "fedforecast-100m", "reduced": reduced,
+        "rounds": ASYNC_COMMITS, "local_steps": LOCAL_STEPS,
+        "batch_size": BATCH_SIZE, "lr": LR,
+        "data_schema": {"vocab": vocab, "seq_len": SEQ_LEN},
+        "protocol": "async_buff", "async_buffer_size": ASYNC_BUFFER,
+        "secure_aggregation": False, "gc_round_resources": True})
+    job = con.server.job_creator.from_contract(contract)
+    datasets = make_silo_datasets(len(SILOS), vocab=vocab, seq_len=SEQ_LEN,
+                                  seed=1)
+    for org, ds, k in zip(SILOS, datasets, ASYNC_CADENCES):
+        con.scheduler.register_agent(con.client_ids[org], ds, tick_every=k)
+    run_id = con.start(job, datasets)
+    server, run = con.server, con.server.run
+    folds = []
+    collect = server.comm.collect
+
+    def spy(path, cid):
+        msg = collect(path, cid)
+        if "/async/update/" in path and len(folds) < ASYNC_BUFFER:
+            folds.append(msg)          # commit 0's folds, in fold order
+        return msg
+    server.comm.collect = spy
+    phase, wall = sync_seconds(con.run_to_completion)
+    check(phase == "done", f"the async run ends in done (got {phase})")
+    check(server.metadata.verify_chain(), "the provenance chain verifies")
+    commits = server.metadata.query(operation="async_commit")
+    check(len(commits) == len(run.history) == ASYNC_COMMITS,
+          f"{ASYNC_COMMITS} commits ({len(commits)})")
+    for c in commits:
+        ws = c["details"]["weights"]
+        check(all(w > 0 for w in ws) and abs(sum(ws) - 1.0) <= 1e-12,
+              f"commit weights positive, summing to 1: {ws}")
+    taus = [c["details"]["staleness"] for c in commits]
+    check(any(t > 0 for ts in taus for t in ts),
+          f"a stale fold at cadences {ASYNC_CADENCES}: {taus}")
+
+    # commit 0 in numpy, as the reference folds it: buffer + w * delta
+    # (w rounded to f32), buffer / float32(weight), then the leaf add
+    buffer, weight = None, 0.0
+    for msg in folds:
+        w = staleness_weight(max(0, 0 - int(msg["base_commit"])))
+        delta = np.asarray(msg["delta"], np.float32)
+        buffer = w * delta if buffer is None else buffer + w * delta
+        weight += w
+    mean = buffer / np.float32(weight)
+    got = _tree.leaves(params_to_numpy(server.store.get(
+        run.history[0]["digest"])))
+    init = _tree.leaves(params_to_numpy(state["init"]))
+    layout = PackedLayout.for_tree(state["init"])
+    check(all(np.array_equal(g, p.astype(np.float32) + mean[
+              sp.offset:sp.offset + sp.size].reshape(sp.shape))
+              for g, p, sp in zip(got, init, layout.leaves)),
+          "commit 0's global equals the numpy fold bitwise")
+    del folds, buffer, mean, got, init
+
+    losses = [h["mean_train_loss"] for h in run.history] + [
+        run.history[-1]["mean_eval_loss"]]
+    check(all(math.isfinite(v) for v in losses), f"finite losses {losses}")
+    node = con.nodes[0]                # cadence 1: deployed at done
+    check(node.deployed_params is not None, "the cadence-1 silo deployed")
+    prompt = datasets[0].batch(1)["tokens"][:, :32]
+    toks, s_predict = sync_seconds(node.predict, prompt, 8)
+    check(toks.shape == (1, 8) and 0 <= toks.min() and toks.max() < vocab,
+          f"predict returns tokens in range: {toks.tolist()}")
+    host, _ = span_seconds(tel, run_id)
+    ends = [sp.t1 for sp in tel.spans(run_id)
+            if sp.name == "async.commit" and sp.t1 is not None]
+    serve0 = min(sp.t0 for sp in tel.spans(run_id)
+                 if sp.name == "phase:async_serve")
+    gaps = [b - a for a, b in zip([serve0] + ends, ends)]
+    width = "reduced" if reduced else "full width"
+    print(f"async run: fedforecast-100m {width}, {len(SILOS)} silos at "
+          f"cadences {ASYNC_CADENCES}, "
+          f"buffer {ASYNC_BUFFER}, {ASYNC_COMMITS} commits; phase {phase}, "
+          f"chain intact; staleness {taus}, weights "
+          f"{[c['details']['weights'] for c in commits]}; commit 0 == numpy "
+          f"fold bitwise; losses {[round(v, 4) for v in losses]}; predict "
+          f"{toks.tolist()} [{card}]", flush=True)
+    print(f"async run: wall {wall:.3f} s over {con.scheduler.passes} passes;"
+          f" per-commit s " + ", ".join(f"c{i} {g:.3f}"
+                                        for i, g in enumerate(gaps))
+          + f"; predict {s_predict:.3f} s [{card}]", flush=True)
+    print_host_seconds("async run", host, ASYNC_SPANS, card)
+    print_board("async run", server.board.stats, card)
 
 
 # ---------------------------------------------------------------------------
@@ -1381,9 +1789,10 @@ def main() -> int:
         return counts
 
     # the main path: slice 1's fp32 secure round and repair, slice 5's FL
-    # run through the control plane, slice 2's compressed planes on the
-    # round's trained silos, then slice 3's serve run; the counts are set
-    # to 0 just before each and read just after it
+    # run through the control plane, slice 6's fleet and async runs, slice
+    # 2's compressed planes on the round's trained silos, then slice 3's
+    # serve run; the counts are set to 0 just before each and read just
+    # after it
     torch.cuda.empty_cache()
     peaks.clear()
     reset_launches()
@@ -1394,6 +1803,18 @@ def main() -> int:
     reset_launches()
     run_phase("fl run", peaks, card, fl_phase, state, device, card)
     fl = read_path("fl", ("masked_sum",))
+    reset_launches()
+    run_phase("fleet", peaks, card, fleet_phase, state, device, card)
+    run_phase("fleet run", peaks, card, fleet_run_phase, state, device, card)
+    fleet = read_path("fleet", ("masked_sum",))
+    reset_launches()
+    run_phase("async run", peaks, card, async_phase, state, device, card)
+    asynchronous = read_path("async", ())
+    check(not any(asynchronous.values()),
+          "the async path launches no kernel (its fold is plain PyTorch, "
+          "as the reference's is numpy)")
+    print("async path: no repo kernel, as in the reference (the fold is "
+          "plain PyTorch on the card)", flush=True)
     reset_launches()
     for what, fn in (("int8 round", int8_phase),
                      ("secure int8 round", secure_int8_phase),
@@ -1419,8 +1840,8 @@ def main() -> int:
           f"one prefill launches K6 and K7 once a layer ({n_layers})")
     check(served["flash_attention_f32"] == 0,
           "the bf16 serve path runs K6's tensor-core kernel only")
-    launches = {k: fp32[k] + fl[k] + compressed[k] + served[k]
-                for k in fp32}
+    launches = {k: fp32[k] + fl[k] + fleet[k] + asynchronous[k]
+                + compressed[k] + served[k] for k in fp32}
     for k in kernels:
         check(launches[k["name"]] > 0, f"{k['name']} launched on the path")
     print(f"main path: launches {launches}; peak device memory "

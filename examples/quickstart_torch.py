@@ -2,12 +2,19 @@
 
     PYTHONPATH=src python examples/quickstart_torch.py               # card
     PYTHONPATH=src python examples/quickstart_torch.py --device cpu  # CPU
+    ... --device cpu --protocol async_buff                # FedBuff commits
+    ... --device cpu --devices-per-silo 1000 --device-cohort-size 4
 
 The same FL-APU lifecycle as ``examples/quickstart.py``, through
 ``repro_torch``: negotiate -> contract -> job -> validate -> secure-masked
-rounds -> deploy -> inference. It runs on CUDA unless asked for the CPU
-(without CUDA the default raises). The initial global is drawn from the
-port's own seeded generator, so its numbers are not the JAX quickstart's.
+rounds -> deploy -> inference. ``--protocol async_buff`` runs the
+buffered asynchronous protocol instead (secure aggregation off, which it
+requires; 2 folds a commit). ``--devices-per-silo`` puts a simulated
+device fleet behind each silo, ``--device-cohort-size`` devices of it
+training each round (the hierarchical tier; sync only). It runs on CUDA
+unless asked for the CPU (without CUDA the default raises). The initial
+global is drawn from the port's own seeded generator, so its numbers are
+not the JAX quickstart's.
 """
 import argparse
 import os
@@ -23,7 +30,12 @@ from repro_torch.data import make_silo_datasets  # noqa: E402
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--protocol", default="sync",
+                    choices=["sync", "async_buff"])
+    ap.add_argument("--devices-per-silo", type=int, default=1)
+    ap.add_argument("--device-cohort-size", type=int, default=0)
     args = ap.parse_args(argv)
+    asynchronous = args.protocol == "async_buff"
 
     # 1. three competing companies + a trusted coordinator
     con = Consortium(["windco", "solarx", "gridpower"], seed=0,
@@ -35,7 +47,10 @@ def main(argv=None):
         "arch": "fedforecast-100m",
         "rounds": 3, "local_steps": 3, "batch_size": 4, "lr": 1e-3,
         "data_schema": schema.to_dict(),
-        "secure_aggregation": True,
+        "secure_aggregation": not asynchronous,
+        "protocol": args.protocol, "async_buffer_size": 2,
+        "devices_per_silo": args.devices_per_silo,
+        "device_cohort_size": args.device_cohort_size,
     })
     print(f"contract {contract.contract_id} v{contract.version} agreed by "
           f"{len(contract.participants)} participants")
@@ -54,6 +69,13 @@ def main(argv=None):
               f"loss={r['metrics']['mean_train_loss']:.4f} "
               f"model={r['model_digest'][:12]} contrib="
               f"{ {k: round(v, 2) for k, v in r['contributions']['data_size'].items()} }")
+
+    for n in con.nodes:
+        for rec in n.metadata.query(operation="inner_round"):
+            d = rec["details"]
+            print(f"  {n.client_id} inner round {d['round']}: sampled "
+                  f"{d['sampled']}, dropped {d['dropped']}, folded "
+                  f"{d['folded']}, {d['devices_per_sec']:.1f} devices/s")
 
     # 5. every client personalized + deployed; external app queries it
     node = con.nodes[0]

@@ -10,11 +10,10 @@ Client containers (paper §VI): FLClientNode (FL Pipeline + Client Model
 Deployer + Inference Manager + Model Monitoring), ClientCommunicator.
 
 Ported: the control plane (copies of the framework-free modules), the
-sync protocol with dropout repair, the server, the client's sync path,
+sync protocol with dropout repair, the async buffered protocol, the
+hierarchical intra-silo tier (device fleets), the server, the client,
 the scheduler and ``Consortium``, over the data plane (packing, pairwise
 fp32 and integer masks, streaming sinks, compression, aggregation).
-Not ported yet (ROADMAP queue A item 12): the async protocol, device
-fleets and the intra-silo tier; they raise ``NotImplementedError``.
 """
 from repro_torch.core.aggregation import (AGGREGATORS, aggregate,  # noqa: F401
                                           aggregate_packed)
@@ -34,7 +33,8 @@ from repro_torch.core.packing import (PackedLayout, pack_many,  # noqa: F401
                                       pack_pytree, unpack_pytree)
 from repro_torch.core.protocol import (PROTOCOLS, AsyncBuffProtocol,  # noqa: F401
                                        Phase, Protocol, SyncProtocol,
-                                       WakeCondition, make_protocol)
+                                       WakeCondition, make_protocol,
+                                       staleness_weight)
 from repro_torch.core.scheduler import (FederationScheduler,  # noqa: F401
                                         JobEntry)
 from repro_torch.core.server import FLServer, ModelStore  # noqa: F401

@@ -8,18 +8,20 @@ client is strictly *proactive*: it fetches configuration, models and status
 and posts its own resources; nothing on the client runs because the server
 asked it to (requirement 6).
 
-Port of ``repro.core.client``: the sync path of ``FLClientNode`` and
-``ClientAgent``. A node trains, evaluates and serves on its ``device``
-(default ``"cuda"``, which raises without CUDA); the reference's jitted
-executables become the port's eager loss and ``make_train_step``, shared
-per ``(arch, reduced, device)``. Payloads cross into numpy only where
-they are posted on the board, and fetched params go straight onto the
-device. Not ported yet (ROADMAP queue A item 12): device fleets
-(``devices_per_silo > 1``: the ``InnerRoundEngine``/``DeviceNode`` tier)
-and the async loop (``_do_async``); both raise ``NotImplementedError``.
+Port of ``repro.core.client``: ``FLClientNode`` (the sync round, the
+async loop, repair, eval, deploy, serving), ``ClientAgent`` and the
+hierarchical tier (``DeviceNode``, ``InnerRoundEngine``). A node trains,
+evaluates and serves on its ``device`` (default ``"cuda"``, which raises
+without CUDA); the reference's jitted executables become the port's eager
+loss and ``make_train_step``, shared per ``(arch, reduced, device)``.
+Payloads cross into numpy only where they are posted on the board, and
+fetched params go straight onto the device. A device-fleet silo folds its
+devices' clipped deltas into ``MaskedF32Sink`` on its own device, so each
+flush of up to ``DEFAULT_STREAM_BATCH`` deltas is one K1 launch.
 """
 from __future__ import annotations
 
+import time
 from collections import OrderedDict
 from dataclasses import dataclass
 from typing import Dict, List, Optional
@@ -35,7 +37,6 @@ from repro_torch.core.communicator import ClientCommunicator
 from repro_torch.core.packing import pack_pytree
 from repro_torch.core.jobs import FLJob
 from repro_torch.core.metadata import MetadataStore
-from repro_torch.core.protocol import NOT_PORTED
 from repro_torch.core.validation import apply_preprocessing
 from repro_torch.device import DEFAULT_DEVICE, resolve
 from repro_torch.models import build_model
@@ -167,9 +168,12 @@ class FLClientNode:
         self._packed_size: Optional[int] = None
         self._repair_done = None            # (hp, round, epoch) last posted
         self._attempt_seen = 0              # server round_attempt mirrored
-        # inner_hooks fire at inner-round boundaries — the tier-aware
-        # analogue of the scheduler's on_phase callback (Consortium wires
-        # drop_at through them)
+        # hierarchical device fleet (DESIGN.md §Hierarchical federation):
+        # built with the job when it negotiates devices_per_silo > 1 (or
+        # an explicit device_cohort_size); inner_hooks fire at inner-round
+        # boundaries — the tier-aware analogue of the scheduler's
+        # on_phase callback (Consortium wires drop_at through them)
+        self.fleet = None
         self.inner_hooks: List = []
         # deployment state
         self.deployed_params = None
@@ -249,10 +253,6 @@ class FLClientNode:
 
     # ------------------------------------------------------------------
     def _setup_job(self, job: FLJob):
-        if job.device_fleet:
-            raise NotImplementedError(
-                f"device fleets (devices_per_silo={job.devices_per_silo}, "
-                f"device_cohort_size={job.device_cohort_size}) {NOT_PORTED}")
         self.job = job
         # models and steps are shared process-wide: a silo serving N
         # concurrent jobs on one architecture builds them once, not N times
@@ -269,6 +269,14 @@ class FLClientNode:
                            or self.client_id)
             self._ef = make_error_feedback(job, noise_id,
                                            device=self.device)
+        if job.device_fleet:
+            # device-fleet mode: this silo fronts its own cross-device
+            # population. Sharding is keyed by the silo dataset's seed so
+            # twin runs over the same silos sample the same fleets.
+            from repro_torch.data.synthetic import make_device_shards
+            self.fleet = make_device_shards(
+                self.dataset, job.devices_per_silo,
+                seed=int(getattr(self.dataset, "seed", 0)))
         self.metadata.record_provenance(
             actor=self.client_id, operation="fetch_job", subject=job.job_id,
             outcome="configured", details={"arch": job.arch})
@@ -313,19 +321,54 @@ class FLClientNode:
         return params, loss, n_examples
 
     def run_inner_round(self, base_params, lr: float, rnd: int = 0):
-        """The round's local contribution: one ``_fit`` over the silo's
-        own data (a flat silo; device fleets raise at job setup).
+        """The round's local contribution, tier-aware.
 
-        ``inner_hooks`` fire at the boundary; a hook may raise
+        Flat silo (no device fleet): one ``_fit`` over the silo's own
+        data. Device-fleet mode: drive the ``IntraSiloProtocol`` over a
+        sampled device cohort via an ``InnerRoundEngine`` and return the
+        silo's pre-aggregated result. Either way the return contract is
+        ``(params, loss, n_examples)``, so the outer wire format — and
+        everything layered on it: secure-agg, int8/topk compression, DP
+        — composes without knowing the silo is a mini-aggregator.
+
+        ``inner_hooks`` fire at the boundary (both modes, so tier-aware
+        ``drop_at`` specs behave uniformly); a hook may raise
         ``InnerRoundAborted`` to kill this silo's round before anything
         is trained or posted.
         """
         for hook in list(self.inner_hooks):
             hook(self.client_id, rnd, "enter")
-        result = self._fit(self.dataset, base_params, lr)
+        if self.fleet is None:
+            result = self._fit(self.dataset, base_params, lr)
+            for hook in list(self.inner_hooks):
+                hook(self.client_id, rnd, "exit")
+            return result
+        engine = InnerRoundEngine(self, rnd, lr, base_params)
+        tel = self.telemetry
+        with tel.span("client.inner_round", cat="client",
+                      actor=self.client_id, run_id=self.run_id,
+                      attrs={"round": rnd}) as sp:
+            params, loss, n_examples = engine.run()
+            sp.set(sampled=len(engine.cohort), dropped=len(engine.dropped),
+                   folded=engine.folded, loss=float(loss))
+        per_sec = engine.folded / engine.elapsed if engine.elapsed else 0.0
+        # span, counter and provenance names are the reference's: the
+        # telemetry tests and chip_smoke.py read them
+        m = tel.metrics
+        m.counter("fleet.devices_folded").inc(engine.folded)
+        m.counter("fleet.devices_dropped").inc(len(engine.dropped))
+        m.counter("fleet.inner_rounds").inc()
+        self.metadata.record_provenance(
+            actor=self.client_id, operation="inner_round",
+            subject=f"{self.run_id}/r{rnd}", outcome="folded",
+            details={"round": rnd, "sampled": len(engine.cohort),
+                     "dropped": len(engine.dropped),
+                     "folded": engine.folded,
+                     "devices_per_sec": per_sec,
+                     "peak_fold_bytes": engine.peak_fold_bytes})
         for hook in list(self.inner_hooks):
             hook(self.client_id, rnd, "exit")
-        return result
+        return params, loss, n_examples
 
     def _do_round(self, status) -> str:
         rnd, hp = status["round"], status["hp_index"]
@@ -426,8 +469,57 @@ class FLClientNode:
         return "update_posted"
 
     def _do_async(self, status) -> str:
-        """Continuous-train loop of async buffered jobs — not ported."""
-        raise NotImplementedError(f"the async client loop {NOT_PORTED}")
+        """Continuous-train loop for async buffered jobs (DESIGN.md
+        §Protocol programs): every tick, fetch the *latest committed*
+        global (the commit index rides the status resource), run the
+        local steps, and post the packed parameter *delta* tagged with
+        the commit it was trained from — the server discounts it by how
+        far the global has moved by the time it folds it. No per-round
+        done-marker: an async client trains as fast as its own poll
+        cadence allows, which is exactly the heterogeneity the protocol
+        absorbs (fast silos contribute more updates, slow silos' stale
+        updates are down-weighted, nobody stalls anybody)."""
+        rnd, hp = status["round"], status["hp_index"]
+        base = f"{self.ns}/round/{hp}/{rnd}"
+        # an async silo contributes several updates against one commit's
+        # global — conditional fetch re-downloads it only when the server
+        # actually committed a new one
+        msg = self.comm.fetch_cached(f"{base}/global", broadcast=True)
+        if msg is None:
+            return "waiting_global"
+        tel = self.telemetry
+        base_params = params_from_numpy(msg["params"], self.device)
+        try:
+            with tel.span("client.train", cat="client",
+                          actor=self.client_id, run_id=self.run_id,
+                          attrs={"base_commit": rnd}) as sp:
+                params, loss, n_examples = self.run_inner_round(
+                    base_params, float(status.get("lr", self.job.lr)), rnd)
+                sp.set(loss=float(loss))
+        except InnerRoundAborted:
+            return "inner_round_aborted"
+        from repro_torch.core.protocol import pack_delta
+        delta = pack_delta(params, base_params)
+        if self.job.compression != "none":
+            # same error-feedback state as the sync path. Telescoping
+            # assumes every post gets folded; async posts overwrite in
+            # place, so a deployment where clients post faster than the
+            # server folds would drop overwritten posts' mass (here the
+            # scheduler folds between client passes, so each post lands)
+            payload = {"comp": self._ef.step(delta), "base_commit": rnd,
+                       "n_examples": n_examples, "train_loss": loss}
+        else:
+            payload = {"delta": delta.cpu().numpy(), "base_commit": rnd,
+                       "n_examples": n_examples, "train_loss": loss}
+        with tel.span("client.post", cat="client", actor=self.client_id,
+                      run_id=self.run_id, attrs={"base_commit": rnd}):
+            self.comm.post(
+                f"{self.ns}/async/update/{self.client_id}", payload)
+        self.metadata.record_provenance(
+            actor=self.client_id, operation="local_train_async",
+            subject=f"{self.run_id}/c{rnd}", outcome="update_posted",
+            details={"loss": loss, "base_commit": rnd})
+        return "async_update_posted"
 
     def _do_repair(self, status) -> str:
         """Dropout repair (DESIGN.md §Dropout-tolerant rounds): re-derive
@@ -585,7 +677,15 @@ class FLClientNode:
     # Inference Manager + Model Subscription API (SAAM tasks 35/40)
     # ------------------------------------------------------------------
     def predict(self, tokens: np.ndarray, n_steps: int = 4) -> np.ndarray:
-        """Serve the deployed model: greedy continuation of ``tokens``."""
+        """Serve the deployed model: greedy continuation of ``tokens``.
+
+        Follows the reference's positions: the cache holds ``S + n_steps``
+        positions and the i-th decode step sits at ``S + i``, leaving out
+        the model's meta tokens. ``launch/serve.py`` counts them instead
+        (``tests/test_torch_serve.py::test_serve_positions_count_meta_tokens``),
+        so for a model with meta tokens (``hymba-1.5b``) the two differ;
+        ``predict`` stays the reference's twin (``tests/test_torch_serve.py::
+        test_client_predict_matches_reference_on_hymba``)."""
         if self.deployed_params is None:
             raise RuntimeError("no model deployed")
         m = self.model
@@ -604,6 +704,191 @@ class FLClientNode:
                 logits, cache = m.decode_step(params, cache, tok, pos)
                 tok = torch.argmax(logits, -1).to(torch.int32)
         return np.stack(out, axis=1)
+
+
+class DeviceNode:
+    """One simulated edge device in a silo's fleet (DESIGN.md
+    §Hierarchical federation). Deliberately tiny: it owns nothing but its
+    identity and its lazily-materialized data shard — the train step is
+    the process-wide ``shared_step`` and the silo's ``InnerRoundEngine``
+    drives sampling, clipping and folding. ``__slots__`` because a
+    10k-device fleet materializes one of these per sampled device per
+    round."""
+
+    __slots__ = ("device_index", "shard")
+
+    def __init__(self, device_index: int, shard):
+        self.device_index = device_index
+        self.shard = shard
+
+    def train(self, node: "FLClientNode", base_params, lr: float):
+        """The device's local steps: exactly the silo's ``_fit`` loop on
+        the device's own shard, so the two tiers can never drift on
+        training/weighting semantics."""
+        return node._fit(self.shard, base_params, lr)
+
+
+class InnerRoundEngine:
+    """Silo-side executor of the ``IntraSiloProtocol`` — the inner-tier
+    mirror of ``FLServer.tick()``'s thin-executor contract: the protocol's
+    phases own the round shape (sample → train/fold → done), the engine
+    just holds the inner round's state and polls the active phase.
+
+    The fold is the same O(T) streaming discipline the outer server uses
+    (``core/streaming.py``): each device's clipped packed delta folds
+    into a ``MaskedF32Sink`` on the silo's device, weighted by its example
+    count, the moment the device finishes training, then is dropped — the
+    engine never holds a (K, T) cohort matrix, and each flush of up to
+    ``DEFAULT_STREAM_BATCH`` staged deltas is one K1 launch on the card.
+    """
+
+    # bounded training batch per poll: ticks stay cooperative, so a silo
+    # agent can interleave other jobs between inner polls if it drives
+    # the engine tick-by-tick instead of via run()
+    DEVICES_PER_POLL = 32
+
+    def __init__(self, node: FLClientNode, rnd: int, lr: float,
+                 base_params):
+        from repro_torch.core.protocol import IntraSiloProtocol
+        self.node = node
+        self.job = node.job
+        self.round = int(rnd)
+        self.lr = float(lr)
+        self.base_params = base_params
+        self.protocol = IntraSiloProtocol()
+        self.phase = self.protocol.initial
+        self.cohort: List[int] = []       # sampled device indices
+        self.dropped: List[int] = []      # Bernoulli-dropped subset
+        self._queue: List[int] = []       # survivors still to train
+        self._single_mode = False
+        self._single = None               # (params, loss, n) shortcut
+        self.sink = None                  # lazy MaskedF32Sink
+        self.folded = 0
+        self.loss_sum = 0.0
+        self.weight_sum = 0
+        self.elapsed = 0.0
+
+    @property
+    def peak_fold_bytes(self) -> int:
+        """The sink's high-water mark: the (T,) accumulator plus the rows
+        staged at a flush, at most ``DEFAULT_STREAM_BATCH`` (36·T bytes,
+        4.19 GB at ``fedforecast-100m`` width, whatever the cohort). On
+        the card the flush's ``torch.stack`` copy of the staged rows comes
+        on top, and each training device holds its params, grads and AdamW
+        moments (about 1.9 GB at that width)."""
+        return 0 if self.sink is None else int(self.sink.peak_bytes)
+
+    # --- executor ------------------------------------------------------
+    def tick(self) -> str:
+        """One poll cycle, same transition contract as FLServer.tick()."""
+        nxt = self.protocol.phase(self.phase).poll(self)
+        if nxt is not None and nxt != self.phase:
+            self.phase = nxt
+            self.protocol.phase(self.phase).enter(self)
+        return self.phase
+
+    def _wait_for_card(self):
+        # the reference blocks on every step's loss; here the last K1
+        # flush and the unpack may still be queued on the card, and a
+        # clock read before they finish would overstate devices_per_sec
+        # and shorten the client.inner_round span
+        if self.sink is not None and self.sink.device.type == "cuda":
+            torch.cuda.synchronize(self.sink.device)
+
+    def run(self):
+        """Drive the inner protocol to its terminal phase and return the
+        silo's pre-aggregated ``(params, loss, n_examples)``."""
+        t0 = time.perf_counter()
+        while not self.protocol.phase(self.phase).terminal:
+            self.tick()
+        self._wait_for_card()
+        self.elapsed = time.perf_counter() - t0
+        out = self.result()
+        self._wait_for_card()
+        return out
+
+    # --- phase callbacks (invoked by the IntraSiloProtocol phases) -----
+    def sample_cohort(self):
+        from repro_torch.core import protocol
+        job, node = self.job, self.node
+        silo = getattr(node.dataset, "silo_id", node.client_id)
+        seed = int(getattr(node.dataset, "seed", 0))
+        self.cohort = protocol.sample_device_cohort(
+            silo, seed, self.round, job.devices_per_silo,
+            job.device_cohort_size)
+        self.dropped = protocol.sample_device_dropout(
+            silo, seed, self.round, self.cohort, job.device_dropout)
+        gone = set(self.dropped)
+        self._queue = [d for d in self.cohort if d not in gone]
+        # exactly one surviving device: return its trained params as-is.
+        # The mean of one delta IS that delta, and skipping the
+        # pack/unpack round trip keeps the degenerate one-device fleet
+        # bit-for-bit identical to the flat silo (the twin tests' anchor,
+        # on the CPU and on the card, where training repeats bitwise)
+        self._single_mode = len(self._queue) == 1
+
+    def train_some(self) -> bool:
+        take = self._queue[:self.DEVICES_PER_POLL]
+        self._queue = self._queue[self.DEVICES_PER_POLL:]
+        for idx in take:
+            self._train_device(idx)
+        return not self._queue
+
+    def _train_device(self, idx: int):
+        node = self.node
+        dev = DeviceNode(idx, node.fleet.shard(idx, self.round))
+        tel = node.telemetry
+        with tel.span("device.train", cat="device",
+                      actor=f"{node.client_id}/dev{idx}",
+                      run_id=node.run_id,
+                      attrs={"round": self.round, "device": idx}) as sp:
+            params, loss, n = dev.train(node, self.base_params, self.lr)
+            sp.set(loss=float(loss), n_examples=int(n))
+        self.loss_sum += float(loss) * int(n)
+        self.weight_sum += int(n)
+        self.folded += 1
+        if self._single_mode:
+            self._single = (params, float(loss), int(n))
+            return
+        from repro_torch.core.protocol import pack_delta
+        delta = pack_delta(params, self.base_params)
+        clip = float(self.job.device_clip)
+        if clip > 0.0:
+            # the reference's norm is numpy's float32 dot (BLAS sdot);
+            # torch sums in another order, so a clipped delta differs from
+            # the reference's at the 1e-7 relative level (its twins hold
+            # 1e-4). The scale is formed as the reference forms it: clip /
+            # norm in f64, rounded to f32
+            norm = float(torch.linalg.vector_norm(delta))
+            if norm > clip:
+                delta.mul_(float(np.float32(clip / norm)))
+        if self.sink is None:
+            from repro_torch.core import streaming
+            self.sink = streaming.MaskedF32Sink(
+                delta.shape[0], device=delta.device, telemetry=tel,
+                run_id=node.run_id)
+        self.sink.fold(delta, float(n))
+
+    def result(self):
+        if self._single is not None:
+            return self._single
+        if self.sink is None:
+            raise RuntimeError("inner round folded no devices")
+        from repro_torch.core.packing import PackedLayout, unpack_pytree
+        loss = self.loss_sum / float(self.weight_sum)
+        # weighted FedAvg over the surviving device cohort: the sink's
+        # weighted sum of clipped deltas divided by the total example
+        # weight, applied to the silo's base params
+        from repro_torch.core.protocol import _f32_scalar
+        total = self.sink.finalize()
+        mean = total / _f32_scalar(self.weight_sum, total.device)
+        layout = PackedLayout.for_tree(self.base_params)
+        delta_tree = unpack_pytree(mean, layout)
+        params = _tree.tree_map(
+            lambda p, d: p.to(torch.float32)
+            + d.to(p.device, torch.float32).reshape(p.shape),
+            self.base_params, delta_tree)
+        return params, float(loss), int(self.weight_sum)
 
 
 class OversubscribedError(RuntimeError):

@@ -13,18 +13,30 @@ phases* with the silos (paper §VI–§VIII):
 * ``FLServer`` is a thin executor: ``tick()`` polls the active phase,
   applies the transition, publishes status.
 
-``SyncProtocol`` is ported: waiting_clients → validating → distribute →
-collect → [repair] → evaluate → (next round / hp restart) → deploying →
-done, with the dropout-deadline and mask-repair machinery. The collect
-folds each arrival into a streaming sink on the server's device (K1 for
-the fp32 secure plane) and the repair folds each correction into the same
-sink as a weight -1 row.
+Three programs are ported:
 
-Not ported yet (ROADMAP queue A item 12): ``AsyncBuffProtocol``
-(FedBuff-style buffered asynchronous aggregation) and the intra-silo
-tier ``IntraSiloProtocol``. Both raise ``NotImplementedError``; the name
-``async_buff`` stays in ``PROTOCOLS`` so job validation matches the
-reference's.
+``SyncProtocol`` — waiting_clients → validating → distribute → collect →
+[repair] → evaluate → (next round / hp restart) → deploying → done, with
+the dropout-deadline and mask-repair machinery. The collect folds each
+arrival into a streaming sink on the server's device (K1 for the fp32
+secure plane) and the repair folds each correction into the same sink as
+a weight -1 row.
+
+``AsyncBuffProtocol`` — FedBuff-style buffered asynchronous aggregation
+(Nguyen et al., *Federated Learning with Buffered Asynchronous
+Aggregation*): clients train continuously against the latest committed
+global and post packed *delta* buffers tagged with the commit they
+trained from; the server folds each fresh delta into a (T,) f32 buffer on
+its device, discounted by staleness (``staleness_weight``), and commits a
+new global every ``job.async_buffer_size`` folds. The fold is plain
+PyTorch, as the reference's is numpy: no kernel. Masks cannot telescope
+across asynchronous folds, so job creation rejects
+``secure_aggregation=True`` for this protocol (jobs.py).
+
+``IntraSiloProtocol`` — the same phase machinery run as a silo's *inner*
+round engine over a sampled device cohort (DESIGN.md §Hierarchical
+federation); its executor is ``core.client.InnerRoundEngine``, whose
+fold goes through ``MaskedF32Sink`` and so K1.
 """
 from __future__ import annotations
 
@@ -34,13 +46,11 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch import tree as _tree
 from repro_torch.convert import params_to_numpy
-from repro_torch.core.packing import pack_pytree
+from repro_torch.core.packing import (PackedLayout, as_f32, pack_pytree,
+                                      unpack_pytree)
 from repro_torch.core.validation import DataSchema, validate_stats
-
-# the end of every "not ported" error of the async and hierarchical tiers
-NOT_PORTED = ("is not ported yet (ROADMAP queue A item 12: async, "
-              "contribution and hierarchical)")
 
 
 @dataclass(frozen=True)
@@ -542,23 +552,371 @@ class SyncProtocol(Protocol):
         return "validating"
 
 
+# ---------------------------------------------------------------------------
+# asynchronous buffered aggregation (FedBuff-style)
+# ---------------------------------------------------------------------------
+STALENESS_ALPHA = 0.5
+
+
+def staleness_weight(tau) -> float:
+    """FedBuff polynomial staleness discount: ``(1 + τ)^-α`` with α=0.5.
+
+    τ is the number of commits the global advanced since the client
+    fetched its base model. Strictly positive for every τ ≥ 0 — a stale
+    update is discounted, never discarded — and equal to 1 at τ=0.
+    """
+    return float((1.0 + float(tau)) ** -STALENESS_ALPHA)
+
+
+def fold_weights(taus: Sequence[float]) -> List[float]:
+    """Commit-normalized staleness weights for one buffered commit: each
+    update's ``staleness_weight`` divided by the buffer's total, so the
+    folded delta is a convex combination of the buffered deltas (weights
+    strictly positive, summing to 1)."""
+    raw = [staleness_weight(t) for t in taus]
+    total = sum(raw)
+    return [w / total for w in raw]
+
+
+def _f32_scalar(x: float, device) -> torch.Tensor:
+    """``x`` rounded to f32, as a 0-d tensor on ``device``. Dividing by a
+    CPU scalar, PyTorch's CUDA kernel multiplies by its reciprocal, one
+    rounding more than numpy's f32 division; a device tensor keeps the
+    true division."""
+    return torch.tensor(np.float32(x), device=device)
+
+
+class AsyncServePhase(Phase):
+    """Buffered asynchronous aggregation (DESIGN.md §Protocol programs).
+
+    The server publishes commit ``c``'s global at the standard round path
+    ``round/<hp>/<c>/global`` and keeps serving: every poll it scans the
+    cohort's ``async/update/<cid>`` resources (clients overwrite in place;
+    the board's monotonic overwrite version tells new from seen without
+    decryption), folds each fresh packed delta into the buffer weighted by
+    ``staleness_weight(commit - base_commit)``, and commits a new global
+    once ``job.async_buffer_size`` folds accumulated: normalized fold,
+    outer-optimizer step, history entry, next global published. After
+    ``job.rounds`` commits the run moves to the final evaluate phase.
+    Slow silos never stall the commit cadence — their late deltas land in
+    a later buffer, discounted by how far the global moved.
+
+    The buffer is a (T,) f32 tensor on the server's device; each posted
+    delta (numpy off the board) moves there once, at its fold.
+    """
+
+    name = "async_serve"
+
+    def enter(self, server):
+        r = server.run
+        st = r.proto
+        st.setdefault("seen", {})     # cid -> last folded overwrite version
+        st.setdefault("buffer", None)  # weighted delta sum (T,)
+        st.setdefault("weight", 0.0)  # un-normalized staleness-weight sum
+        st.setdefault("folds", 0)
+        st.setdefault("fold_losses", [])
+        st.setdefault("fold_sizes", {})
+        st.setdefault("fold_taus", [])
+        self._publish_commit(server)
+
+    def _publish_commit(self, server):
+        server.publish_round_global(server.run.cohort)
+
+    def poll(self, server):
+        r = server.run
+        st = r.proto
+        # overwrite detection across the whole cohort in one batched
+        # metadata sweep — the async server polls every tick, so this is
+        # the hottest probe path in the buffered protocol
+        paths = {cid: f"{r.ns}/async/update/{cid}"
+                 for cid in r.cohort}
+        metas = server.board.stat_many(paths.values())
+        for cid in r.cohort:
+            path = paths[cid]
+            meta = metas[path]
+            if meta is None or meta["version"] <= st["seen"].get(cid, 0):
+                continue
+            msg = server.comm.collect(path, cid)
+            st["seen"][cid] = meta["version"]
+            self._fold(server, cid, msg)
+            if st["folds"] >= r.job.async_buffer_size:
+                done = self._commit(server)
+                if done:
+                    return "evaluate"
+        return None
+
+    def _fold(self, server, cid: str, msg: dict):
+        r = server.run
+        st = r.proto
+        tau = max(0, r.round - int(msg["base_commit"]))
+        w = staleness_weight(tau)
+        if r.job.compression != "none":
+            # compressed plane: the staleness-weighted fold consumes the
+            # dequantized delta — decompression happens exactly once, at
+            # fold time, on the host, and the dense f32 delta then moves
+            # to the buffer's device like a plain one
+            from repro_torch.core.compression import decompress
+            delta = decompress(msg["comp"])
+        else:
+            delta = msg["delta"]
+        delta = as_f32(delta, server.device).reshape(-1)
+        # numpy's ``buffer + w * delta`` rounds w to f32 first (NEP 50),
+        # then rounds the product and the sum once each. ``add_(delta,
+        # alpha=w)`` would contract both into one FMA (on CUDA and on the
+        # CPU's vectorised path), so the fold is two ops: bitwise equal
+        # to the reference's
+        wd = delta * float(np.float32(w))
+        st["buffer"] = wd if st["buffer"] is None else st["buffer"].add_(wd)
+        st["weight"] += w
+        st["folds"] += 1
+        st["fold_losses"].append(float(msg["train_loss"]))
+        st["fold_sizes"][cid] = (st["fold_sizes"].get(cid, 0)
+                                 + int(msg["n_examples"]))
+        st["fold_taus"].append(tau)
+
+    def _commit(self, server) -> bool:
+        """Normalize the buffer, step the outer optimizer, publish the
+        next global. Returns True when the commit budget is exhausted."""
+        r = server.run
+        st = r.proto
+        # the async protocol spends its whole life in one phase, so the
+        # per-phase spans can't show commit cadence — each commit gets its
+        # own span (folds + staleness tell the staleness-discount story)
+        with server.telemetry.span(
+                "async.commit", cat="phase", actor="server",
+                run_id=r.run_id,
+                attrs={"commit": r.round, "folds": st["folds"]}):
+            return self._commit_inner(server)
+
+    def _commit_inner(self, server) -> bool:
+        r = server.run
+        st = r.proto
+        job = r.job
+        old_params = server.store.get(r.global_digest)
+        layout = PackedLayout.for_tree(old_params)
+        # convex combination of buffered deltas: weights are the positive
+        # staleness discounts normalized by their sum (fold_weights); the
+        # f32 division and the leaf add are numpy's, bit for bit
+        buf = st["buffer"]
+        mean_delta = unpack_pytree(
+            buf / _f32_scalar(st["weight"], buf.device), layout)
+        new_global = _tree.tree_map(
+            lambda p, d: p.to(torch.float32)
+            + d.to(p.device, torch.float32).reshape(p.shape),
+            old_params, mean_delta)
+        from repro_torch.optim import OUTER_REGISTRY
+        if r.outer is None:
+            r.outer = OUTER_REGISTRY[job.outer_optimizer]()
+            r.outer_state = r.outer.init(old_params)
+        new_params, r.outer_state = r.outer.step(
+            old_params, new_global, r.outer_state)
+        commit = r.round
+        digest = server.store.put(new_params, "async_commit", {
+            "run_id": r.run_id, "commit": commit, "hp_index": r.hp_index,
+            "folds": st["folds"], "staleness": list(st["fold_taus"])})
+        metrics = {"mean_train_loss": float(np.mean(st["fold_losses"])),
+                   "folds": st["folds"],
+                   "mean_staleness": float(np.mean(st["fold_taus"]))}
+        from repro_torch.core.contribution import data_size_contribution
+        server.metadata.record_round(
+            r.run_id, commit, metrics, digest,
+            {"data_size": data_size_contribution(st["fold_sizes"])})
+        server.metadata.record_provenance(
+            actor="run_manager", operation="async_commit",
+            subject=f"{r.run_id}/c{commit}", outcome="committed",
+            details={"folds": st["folds"],
+                     "staleness": list(st["fold_taus"]),
+                     "weights": fold_weights(st["fold_taus"])})
+        r.history.append({"round": commit, "hp_index": r.hp_index,
+                          **metrics, "digest": digest})
+        r.global_digest = digest
+        st["buffer"] = None
+        st["weight"] = 0.0
+        st["folds"] = 0
+        st["fold_losses"] = []
+        st["fold_sizes"] = {}
+        st["fold_taus"] = []
+        r.round = commit + 1
+        if job.gc_round_resources:
+            # prior commits' globals are spent the moment a newer one is
+            # published (clients always fetch the status round's global)
+            for path in server.board.list(
+                    f"{r.ns}/round/{r.hp_index}/*/global"):
+                try:
+                    rel = path[len(r.ns) + 1:].split("/")
+                    if int(rel[2]) < r.round:
+                        server.board.delete(path)
+                except (IndexError, ValueError):
+                    continue
+        self._publish_commit(server)
+        return r.round >= job.rounds
+
+    def wait_paths(self, server):
+        r = server.run
+        return [f"{r.ns}/async/update/{cid}" for cid in r.cohort]
+
+    def wake(self, server):
+        # the watched resources are overwritten in place, so "missing"
+        # filtering is wrong here: wake whenever any of them changes
+        # (the board's mutation counter bumps on every overwrite)
+        return WakeCondition(paths=tuple(self.wait_paths(server)))
+
+
+class AsyncEvaluatePhase(EvaluatePhase):
+    """Final evaluation of the last committed global: clients see the
+    standard ``evaluate`` status (round = commit count) and post their
+    eval of ``round/<hp>/<commits>/global`` — the model published by the
+    last commit. The mean lands on the last history entry, so deploying
+    releases the final committed model. Only the advance decision and the
+    provenance subject differ from the sync evaluate."""
+
+    def subject(self, r) -> str:
+        return f"{r.run_id}/final"
+
+    def advance(self, server) -> str:
+        return "deploying"
+
+
 class AsyncBuffProtocol(Protocol):
-    """FedBuff-style buffered asynchronous aggregation — not ported."""
+    """waiting_clients → validating → async_serve → evaluate → deploying."""
 
     name = "async_buff"
 
-    def __init__(self):
-        raise NotImplementedError(f"protocol 'async_buff' {NOT_PORTED}")
+    def build_phases(self):
+        return (WaitingClientsPhase(next_phase="validating"),
+                ValidatingPhase(next_phase="async_serve"),
+                AsyncServePhase(), AsyncEvaluatePhase(),
+                DeployingPhase(), PausedPhase(), DonePhase())
+
+    def resume(self, server) -> str:
+        """Phase-aware re-entry. Buffered updates are staleness-tagged,
+        so nothing collected before a mid-serve pause is stale in the
+        sync sense — resume serving where the run left off (re-publishing
+        the current commit's global, via enter). But a pause after the
+        commit budget was exhausted must NOT re-enter serving (that would
+        fold one commit past the budget); it resumes into the final
+        evaluate, or straight into deploying when the eval mean already
+        landed. A pause before serving ever started re-validates, like
+        the sync protocol."""
+        r = server.run
+        if not r.proto:
+            return "validating"       # paused before async_serve.enter ran
+        if r.round >= r.job.rounds:   # commit budget already exhausted
+            evaluated = (bool(r.history)
+                         and "mean_eval_loss" in r.history[-1])
+            return "deploying" if evaluated else "evaluate"
+        return "async_serve"
+
+
+# ---------------------------------------------------------------------------
+# intra-silo tier (DESIGN.md §Hierarchical federation)
+#
+# The phase machinery above is tier-agnostic on purpose: a Phase only ever
+# talks to the executor it is handed. The outer tier's executor is
+# FLServer (board paths under ``run.ns``, cohort of silo client ids, the
+# server publishes the global); the inner tier's executor is a silo's
+# ``InnerRoundEngine`` (core/client.py) — no board at all, a cohort of
+# device *indices* sampled per outer round, and the silo itself holding
+# the base params. ``IntraSiloProtocol`` is deliberately NOT registered in
+# PROTOCOLS: it is not a negotiable job-level protocol but the recursive
+# round engine a device-fleet silo instantiates per outer round.
+# ---------------------------------------------------------------------------
+def _device_rng(silo_id, seed: int, rnd: int, tag: int):
+    """Deterministic per-(silo, seed, round, purpose) generator. Uses the
+    silo's hashed string identity (data.synthetic.silo_key), never
+    Python's per-process ``hash``."""
+    from repro_torch.data.synthetic import silo_key
+    return np.random.default_rng(np.random.SeedSequence(
+        [int(seed) % (2 ** 63), silo_key(silo_id), int(rnd), int(tag)]))
+
+
+def sample_device_cohort(silo_id, seed: int, rnd: int, n_devices: int,
+                         cohort_size: int) -> List[int]:
+    """Sample the inner round's device cohort — a pure function of
+    ``(silo_id, seed, rnd)``, so a re-run (resume, twin bench, repaired
+    attempt) samples the same devices. ``cohort_size <= 0`` means the
+    whole fleet participates."""
+    n = int(n_devices)
+    k = n if int(cohort_size) <= 0 else min(int(cohort_size), n)
+    if k >= n:
+        return list(range(n))
+    rng = _device_rng(silo_id, seed, rnd, 0xC0)
+    return sorted(rng.choice(n, size=k, replace=False).tolist())
+
+
+def sample_device_dropout(silo_id, seed: int, rnd: int,
+                          cohort: Sequence[int], p: float) -> List[int]:
+    """Bernoulli(p) device dropout over the sampled cohort, deterministic
+    in ``(silo_id, seed, rnd)``. Never empties the cohort: if every
+    sampled device drops, the first sampled device is kept — an inner
+    round with zero survivors would post a zero-weight update and poison
+    the outer weighted mean, so the guard is part of the contract."""
+    if float(p) <= 0.0 or not cohort:
+        return []
+    rng = _device_rng(silo_id, seed, rnd, 0xD0)
+    mask = rng.random(len(cohort)) < float(p)
+    dropped = [d for d, m in zip(cohort, mask) if m]
+    if len(dropped) == len(cohort):
+        dropped = dropped[1:]
+    return dropped
+
+
+class DeviceSamplePhase(Phase):
+    """Sample the outer round's device cohort and its dropout set."""
+
+    name = "device_sample"
+
+    def poll(self, engine):
+        engine.sample_cohort()
+        return "device_train"
+
+
+class DeviceTrainPhase(Phase):
+    """Train-and-fold a bounded batch of surviving devices per poll.
+
+    The inner tier's analogue of the streaming collect: each device's
+    clipped packed delta is folded into the engine's O(T) sink the moment
+    it finishes training, and dropped — polls stay cooperative (the silo
+    agent can interleave other jobs' ticks) and the fleet never
+    materializes as a (K, T) matrix."""
+
+    name = "device_train"
+
+    def poll(self, engine):
+        return "inner_done" if engine.train_some() else None
+
+
+class InnerDonePhase(Phase):
+    name = "inner_done"
+    terminal = True
+
+    def poll(self, engine):
+        return None
 
 
 class IntraSiloProtocol(Protocol):
-    """A device-fleet silo's inner round program — not ported."""
+    """The recursive inner round program a device-fleet silo runs per
+    outer round: device_sample → device_train → inner_done.
+
+    The inner tier is plain FedAvg *only* (jobs.py matrix): per-device
+    deltas fold in the clear inside the silo's own trust domain, where
+    the silo already sees its devices' raw data — masking adds nothing.
+    Pairwise secure-agg masks would not telescope anyway: they cancel
+    across a *stable* cohort, and inner cohorts are ephemeral 5%-ish
+    samples that change every round, so the mask graph never closes.
+    Privacy toward the *federation* is the outer tier's job, and it
+    composes unchanged because the silo posts one pre-aggregated delta
+    on the standard wire format.
+    """
 
     name = "intra_silo"
     initial = "device_sample"
 
-    def __init__(self):
-        raise NotImplementedError(f"the intra-silo tier {NOT_PORTED}")
+    def build_phases(self):
+        return (DeviceSamplePhase(), DeviceTrainPhase(), InnerDonePhase())
+
+    def resume(self, engine) -> str:
+        return "device_sample"    # an interrupted inner round re-runs whole
 
 
 PROTOCOLS = {

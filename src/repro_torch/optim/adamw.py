@@ -2,12 +2,14 @@
 (port of ``repro.optim.adamw``).
 
 Functional like the reference: ``update`` returns new updates and state
-and leaves its inputs alone. Global-norm clipping comes before the
+and leaves its inputs alone. ``cosine_schedule`` gives an ``lr`` callable
+for either optimizer. Global-norm clipping comes before the
 moments; moments are fp32 whatever the compute dtype; ``count`` is a
 Python int and bias correction uses ``b ** count``.
 """
 from __future__ import annotations
 
+import math
 from typing import Callable, NamedTuple
 
 import torch
@@ -18,6 +20,23 @@ from repro_torch import tree as _tree
 class Optimizer(NamedTuple):
     init: Callable
     update: Callable   # (grads, state, params) -> (updates, state, info)
+
+
+def cosine_schedule(peak_lr: float, warmup: int, total: int,
+                    floor: float = 0.1):
+    """Linear warm-up to ``peak_lr``, then a cosine decay to
+    ``floor * peak_lr`` at ``total``, evaluated in f32 as the reference
+    does. A tensor step gives a tensor lr on its device; an int or float
+    step gives a float."""
+    def lr(step):
+        s = torch.as_tensor(step, dtype=torch.float32)
+        warm = peak_lr * s / max(warmup, 1)
+        frac = torch.clamp((s - warmup) / max(total - warmup, 1), 0.0, 1.0)
+        cos = peak_lr * (floor + (1 - floor) * 0.5
+                         * (1 + torch.cos(math.pi * frac)))
+        out = torch.where(s < warmup, warm, cos)
+        return out if isinstance(step, torch.Tensor) else float(out)
+    return lr
 
 
 def clip_by_global_norm(grads, max_norm: float):

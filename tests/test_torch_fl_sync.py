@@ -83,9 +83,12 @@ def reference_init(seed: int = 0):
 
 
 def run_twin(side: str, decisions: dict, *, orgs=ORGS, drop_at=None,
-             seed: int = 0, client_config=None):
+             seed: int = 0, client_config=None, cadences=None,
+             before_run=None):
     """Negotiate ``BASE`` updated by ``decisions``, start and run to the
-    end on one side ("jax" or "port"). Returns ``(consortium, phase)``."""
+    end on one side ("jax" or "port"). ``cadences`` registers the silos
+    polling every k-th scheduler pass (``tick_every``); ``before_run(con)``
+    runs between start and run. Returns ``(consortium, phase)``."""
     with fixed_uuids(), one_torch_thread():
         if side == "jax":
             con = JConsortium(orgs, seed=seed, master_key=KEY)
@@ -97,8 +100,13 @@ def run_twin(side: str, decisions: dict, *, orgs=ORGS, drop_at=None,
             data = tdata
         contract = con.negotiate({**BASE, **decisions})
         job = con.server.job_creator.from_contract(contract)
-        con.start(job, data(len(orgs), vocab=VOCAB, seq_len=SEQ, seed=1),
-                  client_config=client_config)
+        datasets = data(len(orgs), vocab=VOCAB, seq_len=SEQ, seed=1)
+        for org, ds, k in zip(orgs, datasets, cadences or ()):
+            con.scheduler.register_agent(con.client_ids[org], ds,
+                                         config=client_config, tick_every=k)
+        con.start(job, datasets, client_config=client_config)
+        if before_run is not None:
+            before_run(con)
         phase = con.run_to_completion(drop_at=drop_at)
     return con, phase
 

@@ -216,3 +216,34 @@ def test_long_cache_raises():
     assert model.cache_len_for(4096) == 4096
     with pytest.raises(NotImplementedError, match="ring cache"):
         model.cache_len_for(40_000)
+
+
+def test_client_predict_matches_reference_on_hymba():
+    """``FLClientNode.predict`` follows the reference's positions (S + i,
+    the meta tokens left out; ROADMAP queue C), not the serve loop's: on
+    reduced ``hymba-1.5b`` and the reference's params it gives the
+    reference's tokens."""
+    from types import SimpleNamespace
+
+    from repro.core.client import FLClientNode as JNode
+    from repro.core.telemetry import Telemetry as JTelemetry
+    from repro_torch.core.client import FLClientNode as TNode
+    from repro_torch.core.telemetry import Telemetry as TTelemetry
+
+    jcfg, tcfg = _cfgs("hymba-1.5b")
+    jp = jax.tree.map(np.asarray, jbuild(jcfg).init(jax.random.PRNGKey(11)))
+    nodes = []
+    for node_cls, tel, model, params, kw in (
+            (JNode, JTelemetry, jbuild(jcfg), jp, {}),
+            (TNode, TTelemetry, tbuild(tcfg, device="cpu"),
+             params_from_numpy(jp, "cpu"), {"device": "cpu"})):
+        comm = SimpleNamespace(board=SimpleNamespace(telemetry=tel()))
+        node = node_cls("silo", comm, None, "run", ["silo"], b"s", **kw)
+        node.model, node.deployed_params = model, params
+        nodes.append(node)
+    prompt = np.random.default_rng(4).integers(0, jcfg.vocab, (B, 20)).astype(
+        np.int32)
+    want = nodes[0].predict(prompt, n_steps=6)
+    got = nodes[1].predict(prompt, n_steps=6)
+    assert got.shape == (B, 6) and got.dtype == np.int32
+    np.testing.assert_array_equal(got, want)
