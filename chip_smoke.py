@@ -111,6 +111,31 @@ Phases (every failed check exits non-zero):
    atol = 1e-3; in bf16 the kernel path's drift from the f32 plain path
    at most 1.5x the bf16 plain path's. Then one prefill and one decode
    step under ``torch.profiler``: a device idle share line each.
+9. ``zoo``: every other architecture of ``repro_torch.configs`` served
+   through ``repro_torch.launch.serve`` (random init from a seed, bf16,
+   ``impl="kernel"``, a warm-up generate of 2 tokens, then a timed one of
+   8): at full width gemma2-9b (2 x 6144; K6 at head dim 256, softcap 50,
+   window 4096 on 21 layers), gemma3-4b (1 x 32,768; qk-norm, K6 at head
+   dim 256 and window 1024, decode from the 1024-slot ring above
+   ``MAX_FULL_CACHE``), olmoe-1b-7b (4 x 1920; 64 experts top-8 at
+   capacity 1.25), mamba2-780m (4 x 2048; K7 at N 128), minicpm3-4b (4 x
+   1920; MLA, no kernel, as in the reference), internvl2-2b (4 x (256
+   patches + 1664 tokens)), seamless-m4t-large-v2 (4 x 1024 frames; the
+   non-causal encoder through K6, a bos decoded at position 0); and at
+   ``reduced()`` dbrx-132b and command-r-plus-104b (about 264 and 208 GB
+   in bf16, over one card). Each prints prefill ms and prompt tok/s,
+   decode ms a token, init and serve peak GiB and its launches, which
+   must be one K6 a (GQA) attention layer (the encoder's for the
+   enc-dec) and one K7 an SSM layer. Checks as phase 8's, on the same
+   weights: the prefill logits against an ``impl="xla"`` twin, and
+   prefill + decode against a prefill one token longer (the enc-dec:
+   decode at 1 against the teacher-forced decoder over [bos, t0]; a
+   MoE: on its dropless copy, since at the published capacity a prefill
+   drops what a decode step keeps), in f32 within 1e-3 and in bf16 as a
+   drift ratio to the f32 plain path of at most 1.5; the twins of
+   gemma2-9b, gemma3-4b and minicpm3-4b are cut to 14, 6 and 31 layers
+   (printed), and gemma3-4b's second check runs on its first 8191
+   tokens.
 
 Phase 3 also holds K3 ``dequant_reduce``, K4 ``masked_dequant_reduce``
 (with and without corrections) and K5 ``secure_agg_combine`` against
@@ -118,13 +143,16 @@ their plain versions at small shapes and at the round's shapes: K3 and
 K5 within 1e-5, K4 bitwise; and K6 ``flash_attention`` at the
 ``FLASH_CASES`` shapes (f32 2e-5 through its CUDA-core kernel, bf16 2e-2
 through its tensor-core kernel and within half a bf16 ulp of the f32
-plain version, a ragged S included) and the serve shape with window 1024
-and 0 (TFLOP/s, share of the bound, ratio to SDPA), K7 ``ssd_scan`` at
-the ``SSD_CASES`` and ``SSD_EXTRA`` shapes in f32 and bf16 and the serve
-shape (2e-4 against the chunked form, its three passes in plain torch
-and, off the serve shape, the sequential oracle; each pass's device
-time), with K6's library yardstick ``F.scaled_dot_product_attention``
-timed beside it (never on the path). Two launches must agree bitwise.
+plain version, a ragged S and head dim 256 included) and the serve
+shapes, hymba-1.5b's with window 1024 and 0 and gemma2-9b's (B 2, S
+6144, 16 / 8 heads, head dim 256, softcap 50) with window 4096 and 0
+(TFLOP/s, share of the bound, ratio to SDPA), K7 ``ssd_scan`` at the
+``SSD_CASES`` and ``SSD_EXTRA`` shapes in f32 and bf16 and the serve
+shapes of hymba-1.5b and mamba2-780m (N 128) (2e-4 against the chunked
+form, its three passes in plain torch and, off the serve shape, the
+sequential oracle; each pass's device time), with K6's library
+yardstick ``F.scaled_dot_product_attention`` timed beside it (never on
+the path). Two launches must agree bitwise.
 
 Launch counters are reset before phase 4 and read after phase 5 (K1 and
 K2 must have run), reset before phase 5b and read after it (K1 must have
@@ -133,10 +161,11 @@ have run), reset before 5e and read after it (the ``async`` path: no
 kernel), reset again before phase 6a and read after 6e (K3, K4
 in both variants, K5 and K1 must have run), and reset before phase 8's
 timed serve run and read after it (K6's tensor-core kernel and K7 once a
-layer, K6's f32 kernel never); the kernels
-line gives the sum of the six paths. Each phase
-prints its seconds and peak device memory. The line before the last is
-the ``kernels`` JSON record; the last line is the device record.
+layer, K6's f32 kernel never), and around each timed generate of phase
+9 (the ``zoo`` path, summed); the kernels line gives the sum of the
+seven paths. Each phase prints its seconds and peak device memory. The
+line before the last is the ``kernels`` JSON record; the last line is the
+device record.
 """
 from __future__ import annotations
 
@@ -184,6 +213,11 @@ FLASH_CASES = [
     (1, 512, 2, 1, 64, True, 128, 0.0),
     (1, 384, 6, 3, 128, True, 0, 30.0),
     (2, 200, 6, 2, 64, True, 64, 0.0),        # ragged S
+    # head dim 256 (gemma2-9b, gemma3-4b): causal, windowed and
+    # softcapped, non-causal with a ragged S
+    (2, 256, 4, 2, 256, True, 0, 0.0),
+    (1, 384, 4, 2, 256, True, 128, 50.0),
+    (2, 200, 2, 1, 256, False, 0, 0.0),
 ]
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 # K6's bf16 store against the f32 plain version on the widened inputs: a
@@ -575,13 +609,9 @@ def attention_kernel_phase(device, card: str, rate: float):
           f"{err['ssd_scan']:.3g}, "
           f"tol {SSD_TOL})", flush=True)
 
-    # the serve path's shapes: hymba-1.5b at B 4 x 2048 positions
-    B, S, H, Hkv, D, W = SERVE_BATCH, SERVE_PROMPT + 128, 25, 5, 64, 1024
-    bf = torch.bfloat16
-    q, k, v = (randn(B, S, h, D, dtype=bf) for h in (H, Hkv, Hkv))
-    rows = []
-    for window in (W, 0):
-        e = k6(q, k, v, True, window, 0.0, FLASH_TOL["bfloat16"])
+    def k6_serve_shape(B, S, H, Hkv, D, window, cap, what):
+        q, k, v = (randn(B, S, h, D, dtype=bf) for h in (H, Hkv, Hkv))
+        e = k6(q, k, v, True, window, cap, FLASH_TOL["bfloat16"])
         pos = torch.arange(S, device=device)
         mask = pos[None, :] <= pos[:, None]
         if window:
@@ -597,54 +627,74 @@ def attention_kernel_phase(device, card: str, rate: float):
             "replaces": "src/repro/kernels/flash_attention/kernel.py:69",
             "shape": [B, S, H, Hkv, D, window], "max_abs_err": e,
             "ms": median_ms(lambda: fops.flash_attention(
-                q, k, v, causal=True, window=window)),
+                q, k, v, causal=True, window=window, logit_softcap=cap)),
+            # the plain version materializes (B, H, S, S) f32 scores: 5
+            # reps of it are enough beside the kernel's 20
             "plain_ms": median_ms(lambda: plain_attention(
-                q, k, v, True, window, 0.0)),
+                q, k, v, True, window, cap), reps=5),
             "bound_ms": b_ms, "bound_by": by,
-            # timed only: the port never calls it
+            # timed only: the port never calls it; SDPA has no softcap, so
+            # at a softcapped shape it computes a little less
             "library_ms": median_ms(lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, attn_mask=mask, scale=D ** -0.5,
                 enable_gqa=True))}
         print_kernel(k6row, nbytes, card)
-        print(f"kernel flash_attention window {window}: {pairs} visible "
-              f"pairs, {4 * B * H * D * pairs / k6row['ms'] / 1e9:.1f} "
-              f"TFLOP/s, {b_ms / k6row['ms']:.3f} of its bound, "
+        print(f"kernel flash_attention {what} window {window} softcap "
+              f"{cap}: {pairs} visible pairs, "
+              f"{4 * B * H * D * pairs / k6row['ms'] / 1e9:.1f} TFLOP/s, "
+              f"{b_ms / k6row['ms']:.3f} of its bound, "
               f"{k6row['library_ms'] / k6row['ms']:.2f}x faster than SDPA "
               f"(bf16 tensor-core kernel); max err vs bf16 plain {e:.3g}; "
               f"bf16 store vs f32 plain at most {err['bf16_half_ulp']:.3f} "
               f"of its half-ulp limit [{card}]", flush=True)
-        rows.append(k6row)
-    del q, k, v
+        return k6row
 
-    b, H, P, N, Q = SERVE_BATCH, 50, 64, 16, 128
-    args = ssd_inputs(b, S, H, P, N, dtype=bf)
-    e = k7(args, Q, oracle=False)
-    nc = -(-S // Q)
-    # C B^T is shared by every head (ngroups = 1): once a (batch, chunk);
-    # its product with the decayed x and the two state products a head
-    flops = b * nc * (Q * (Q + 1) * N
-                      + H * 2 * (Q * (Q + 1) // 2 * P + 2 * Q * N * P))
-    nbytes = (2 * b * S * H * P + 4 * b * S * H + 4 * H + 2 * 2 * b * S * N
-              + 4 * b * S * H * P + 4 * b * H * P * N)
-    b_ms, by = bound_of(nbytes, flops, rate)
-    k7row = {"name": "ssd_scan", "route": "cuda",
-             "source": "src/repro_torch/csrc/ssd_scan.cu",
-             "replaces": "src/repro/kernels/ssd_scan/kernel.py:72",
-             "shape": [b, S, H, P, N, Q], "max_abs_err": err["ssd_scan"],
-             "ms": median_ms(lambda: sops.ssd_scan(*args, chunk=Q)),
-             "plain_ms": median_ms(lambda: sref.ssd_chunked(*args, chunk=Q)),
-             "bound_ms": b_ms, "bound_by": by,
-             "library_ms": None}        # no single PyTorch call computes it
-    print_kernel(k7row, nbytes, card)
-    passes = device_ms_by_kernel(lambda: sops.ssd_scan(*args, chunk=Q))
-    print(f"kernel ssd_scan: {flops / k7row['ms'] / 1e9:.2f} TFLOP/s "
-          f"(f32), {b_ms / k7row['ms']:.3f} of its bound; passes (device "
-          "ms a call, profiler): " + "; ".join(
-              f"{name} {ms:.4f}" for name, ms in passes.items())
-          + f"; max err at the serve shape {e:.3g} [{card}]", flush=True)
+    # the serve paths' shapes: hymba-1.5b at B 4 x 2048 positions (phase
+    # 8), gemma2-9b at B 2 x 6144, head dim 256, softcap 50 (phase 9)
+    bf = torch.bfloat16
+    S = SERVE_PROMPT + 128
+    rows = [k6_serve_shape(SERVE_BATCH, S, 25, 5, 64, window, 0.0,
+                           "hymba-1.5b") for window in (1024, 0)]
+    rows += [k6_serve_shape(2, 6144, 16, 8, 256, window, 50.0, "gemma2-9b")
+             for window in (4096, 0)]
+
+    def k7_serve_shape(b, S, H, P, N, Q, what):
+        args = ssd_inputs(b, S, H, P, N, dtype=bf)
+        e = k7(args, Q, oracle=False)
+        nc = -(-S // Q)
+        # C B^T is shared by every head (ngroups = 1): once a (batch,
+        # chunk); its product with the decayed x and the two state
+        # products a head
+        flops = b * nc * (Q * (Q + 1) * N
+                          + H * 2 * (Q * (Q + 1) // 2 * P + 2 * Q * N * P))
+        nbytes = (2 * b * S * H * P + 4 * b * S * H + 4 * H
+                  + 2 * 2 * b * S * N + 4 * b * S * H * P + 4 * b * H * P * N)
+        b_ms, by = bound_of(nbytes, flops, rate)
+        k7row = {"name": "ssd_scan", "route": "cuda",
+                 "source": "src/repro_torch/csrc/ssd_scan.cu",
+                 "replaces": "src/repro/kernels/ssd_scan/kernel.py:72",
+                 "shape": [b, S, H, P, N, Q], "max_abs_err": err["ssd_scan"],
+                 "ms": median_ms(lambda: sops.ssd_scan(*args, chunk=Q)),
+                 "plain_ms": median_ms(lambda: sref.ssd_chunked(*args,
+                                                                chunk=Q)),
+                 "bound_ms": b_ms, "bound_by": by,
+                 "library_ms": None}    # no single PyTorch call computes it
+        print_kernel(k7row, nbytes, card)
+        passes = device_ms_by_kernel(lambda: sops.ssd_scan(*args, chunk=Q))
+        print(f"kernel ssd_scan {what}: {flops / k7row['ms'] / 1e9:.2f} "
+              f"TFLOP/s (f32), {b_ms / k7row['ms']:.3f} of its bound; passes "
+              "(device ms a call, profiler): " + "; ".join(
+                  f"{name} {ms:.4f}" for name, ms in passes.items())
+              + f"; max err at the serve shape {e:.3g} [{card}]", flush=True)
+        return k7row
+
+    k7row = k7_serve_shape(SERVE_BATCH, S, 50, 64, 16, 128, "hymba-1.5b")
+    k7_serve_shape(4, 2048, 48, 64, 128, 128, "mamba2-780m")
     for row in rows:
         row["max_abs_err"] = err["flash_attention"]
-    # the JSON row of K6 is its windowed shape, 28 of hymba's 32 layers
+    # the JSON rows are hymba's: K6 at its windowed shape, 28 of its 32
+    # layers, and K7
+    k7row["max_abs_err"] = err["ssd_scan"]
     return [rows[0], k7row]
 
 
@@ -1507,18 +1557,20 @@ def serve_setup_phase(device, card: str):
     from repro_torch import tree
     from repro_torch.launch import serve
 
-    model, params, tokens = serve.setup(
+    model, params, batch = serve.setup(
         SERVE_ARCH, reduced=False, batch=SERVE_BATCH, prompt_len=SERVE_PROMPT,
         seed=INIT_SEED, impl="kernel", device=device)
+    tokens = batch["tokens"]
     cfg = model.cfg
     n = sum(p.numel() for p in tree.leaves(params))
     with torch.no_grad():
-        _, s = sync_seconds(serve.generate, model, params, tokens, 2)
+        _, s = sync_seconds(serve.generate, model, params, batch, 2)
     print(f"serve setup: {cfg.name} {cfg.n_layers} layers, d_model "
           f"{cfg.d_model}, {cfg.n_heads} heads / {cfg.n_kv_heads} kv, "
           f"{cfg.n_ssm_heads} SSD heads, {n} params in {cfg.dtype}; warm-up "
           f"generate {s:.2f} s [{card}]", flush=True)
-    return {"model": model, "params": params, "tokens": tokens}
+    return {"model": model, "params": params, "batch": batch,
+            "tokens": tokens}
 
 
 def serve_phase(st, card: str):
@@ -1527,10 +1579,10 @@ def serve_phase(st, card: str):
     import torch
     from repro_torch.launch import serve
 
-    model, tokens = st["model"], st["tokens"]
+    model, batch = st["model"], st["batch"]
     with torch.no_grad():
-        res = serve.generate(model, st["params"], tokens, SERVE_GEN)
-    print(serve.report(model, tokens, res) + f" [{card}]", flush=True)
+        res = serve.generate(model, st["params"], batch, SERVE_GEN)
+    print(serve.report(model, batch, res) + f" [{card}]", flush=True)
     out = res["tokens"]
     check(out.shape == (SERVE_BATCH, SERVE_GEN), f"tokens {tuple(out.shape)}")
     check(bool(((out >= 0) & (out < model.cfg.vocab)).all()),
@@ -1542,31 +1594,37 @@ def serve_phase(st, card: str):
     st["res"] = res
 
 
-def serve_check_phase(st, device, card: str):
-    """(1) the kernel path's prefill logits against an ``impl="xla"`` twin
-    on the same params; (2) prefill(S + 1) against prefill(S) +
-    ``decode_step`` with the kernels on. Each in f32 (the served weights
-    widened) within ``SERVE_F32_TOL``, and in the served bf16, where the
-    kernel path may drift from the f32 plain path at most
-    ``SERVE_BF16_RATIO`` times as far as the bf16 plain path does."""
+def serve_checks(model, params, batch, res, layers, check_tokens, device,
+                 card: str):
+    """The serve checks of phases 8 and 9, at ``layers`` deep:
+    (1) the kernel path's prefill logits against an ``impl="xla"`` twin on
+    the same params; (2) prefill + one ``decode_step`` against a prefill
+    one token longer (an enc-dec: decode of t0 at position 1 against the
+    teacher-forced decoder over [bos, t0]); a MoE's check (2) runs on its
+    dropless copy. Each in f32 (the served weights widened) within
+    ``SERVE_F32_TOL``, and in the served bf16 as a drift ratio of at most
+    ``SERVE_BF16_RATIO`` to the plain path: each bf16 path's logits (its
+    decode for (2)) against the f32 plain path's (a reduced config is
+    f32: its f32 gates are the served ones). Check (2) runs on the first
+    ``check_tokens`` prompt tokens where given."""
     import dataclasses
 
     import torch
     from repro_torch import tree
-    from repro_torch.models import build_model
+    from repro_torch.launch import serve
+    from repro_torch.models import build_model, encdec
+    from repro_torch.models.layers import rms_norm
 
-    model, params, tokens = st["model"], st["params"], st["tokens"]
-    n_meta = model.cfg.n_meta_tokens
-    S = tokens.shape[1]
-    cfg32 = dataclasses.replace(model.cfg, dtype="float32")
-    params32 = tree.tree_map(lambda a: a.float(), params)
-    runs = {"kernel bf16": (model, params),
-            "xla bf16": (build_model(model.cfg, impl="xla", device=device),
-                         params),
-            "kernel f32": (build_model(cfg32, impl="kernel", device=device),
-                           params32),
-            "xla f32": (build_model(cfg32, impl="xla", device=device),
-                        params32)}
+    cfg = model.cfg
+    name = cfg.name
+    cfgL, pL = zoo_cut(cfg, params, layers)
+    bf16 = cfg.dtype == "bfloat16"
+    cfg32 = dataclasses.replace(cfgL, dtype="float32")
+    p32 = tree.tree_map(lambda a: a.float(), pL) if bf16 else pL
+    n0 = serve.stream_len(model, batch)
+    B = batch["tokens"].shape[0]
+    print(f"serve check {name}: twins at {cfgL.n_layers} of {cfg.n_layers} "
+          f"layers [{card}]", flush=True)
 
     def diff(a, b):
         d = (a.float() - b.float()).abs()
@@ -1576,47 +1634,109 @@ def serve_check_phase(st, device, card: str):
 
     def f32_gate(a, b, what):
         d, text = diff(a, b)
-        print(f"serve check {what} (f32): {text} (rtol = atol = "
+        print(f"serve check {name} {what} (f32): {text} (rtol = atol = "
               f"{SERVE_F32_TOL}) [{card}]", flush=True)
         check(bool((d <= SERVE_F32_TOL + SERVE_F32_TOL * b.float().abs())
-                   .all()), f"{what} (f32) within {SERVE_F32_TOL}")
+                   .all()), f"{name} {what} (f32) within {SERVE_F32_TOL}")
 
     def bf16_gate(kernel_gap, plain_gap, what):
         ratio = kernel_gap / plain_gap if plain_gap else float("nan")
-        print(f"serve check {what} (bf16): kernel path {kernel_gap:.4g}, "
-              f"plain path {plain_gap:.4g} (ratio {ratio:.3f}, at most "
-              f"{SERVE_BF16_RATIO}) [{card}]", flush=True)
+        print(f"serve check {name} {what} (bf16): kernel path "
+              f"{kernel_gap:.4g}, plain path {plain_gap:.4g} (ratio "
+              f"{ratio:.3f}, at most {SERVE_BF16_RATIO}) [{card}]",
+              flush=True)
         check(kernel_gap <= SERVE_BF16_RATIO * plain_gap,
-              f"{what} (bf16): kernel path within {SERVE_BF16_RATIO}x the "
-              "plain path's drift")
+              f"{name} {what} (bf16): kernel path within "
+              f"{SERVE_BF16_RATIO}x the plain path's drift")
 
+    def runs(c32, c16):
+        out = {"kernel f32": (build_model(c32, impl="kernel", device=device),
+                              p32),
+               "xla f32": (build_model(c32, impl="xla", device=device), p32)}
+        if bf16:
+            out["kernel bf16"] = (build_model(c16, impl="kernel",
+                                              device=device), pL)
+            out["xla bf16"] = (build_model(c16, impl="xla", device=device),
+                               pL)
+        return out
+
+    cache_len = n0 + 1
     with torch.no_grad():
-        cache_len = model.cache_len_for(n_meta + S + SERVE_GEN)
-        logits = {"kernel bf16": st["res"]["first_logits"]}
-        for name, (m, p) in runs.items():
-            if name not in logits:
-                logits[name], _ = m.prefill(p, {"tokens": tokens}, cache_len)
+        logits = {}
+        if layers >= cfg.n_layers:
+            logits["kernel " + ("bf16" if bf16 else "f32")] = \
+                res["first_logits"]
+        for key, (m, p) in runs(cfg32, cfgL).items():
+            if key not in logits:
+                logits[key] = m.prefill(p, batch, cache_len)[0]
         f32_gate(logits["kernel f32"], logits["xla f32"],
                  "kernel prefill vs xla twin")
-        bf16_gate(*(float(diff(logits[k], logits["xla f32"])[0].max())
-                    for k in ("kernel bf16", "xla bf16")),
-                  "prefill logits vs the f32 plain path")
+        if bf16:
+            bf16_gate(*(float(diff(logits[k], logits["xla f32"])[0].max())
+                        for k in ("kernel bf16", "xla bf16")),
+                      "prefill logits vs the f32 plain path")
+        del logits
 
-        ext = torch.cat([tokens, st["res"]["tokens"][:, :1]], 1)
-        cache_len = n_meta + S + 1
-        pos = torch.full((SERVE_BATCH, 1), n_meta + S, dtype=torch.int32,
-                         device=device)
-        gaps = {}
-        for name in ("kernel f32", "kernel bf16", "xla bf16"):
-            m, p = runs[name]
-            full, _ = m.prefill(p, {"tokens": ext}, cache_len)
-            _, cache = m.prefill(p, {"tokens": tokens}, cache_len)
-            dec, _ = m.decode_step(p, cache, ext[:, S:], pos)
-            if name == "kernel f32":
-                f32_gate(dec, full, "prefill(S) + decode vs prefill(S+1)")
-            gaps[name] = float(diff(dec, full)[0].max())
-        bf16_gate(gaps["kernel bf16"], gaps["xla bf16"],
-                  "prefill(S) + decode vs prefill(S+1)")
+        t0 = res["tokens"][:, :1]
+        if check_tokens:
+            batch = {**batch, "tokens": batch["tokens"][:, :check_tokens]}
+            n0 = serve.stream_len(model, batch)
+            cache_len = n0 + 1
+            print(f"serve check {name}: prefill + decode on the first "
+                  f"{check_tokens} prompt tokens [{card}]", flush=True)
+        dl32, dl16 = zoo_dropless(cfg32), zoo_dropless(cfgL)
+        if cfg.moe is not None:
+            print(f"serve check {name}: prefill + decode on the dropless copy "
+                  f"(capacity_factor {dl32.moe.capacity_factor}): at its "
+                  f"{cfg.moe.capacity_factor} a prefill may drop the latest "
+                  "tokens of an over-full expert, a decode step of "
+                  f"{B} tokens drops none [{card}]", flush=True)
+        def decode_and_full(m, p):
+            """(decode logits of t0 after the prompt, the logits it must
+            match)."""
+            if cfg.is_encoder_decoder:
+                _, cache = m.prefill(p, batch, 2)
+                dec, _ = m.decode_step(p, cache, t0, torch.ones(
+                    (B, 1), dtype=torch.int32, device=device))
+                p_c = m.cast(p)
+                enc_out = m._encode(p_c, batch["frames"])
+                dec_in = m._embed_tokens(p_c, torch.cat(
+                    [torch.zeros_like(t0), t0], 1))
+                hidden = encdec.decoder_apply(
+                    m.cfg, p_c["dec_stack"], dec_in,
+                    torch.arange(2, dtype=torch.int32,
+                                 device=device).expand(B, 2),
+                    enc_out, torch.ones(enc_out.shape[:2], dtype=torch.bool,
+                                        device=device), impl=m.impl)
+                return dec, m._logits(p_c, rms_norm(
+                    hidden[:, -1:], p_c["final_norm"], m.cfg.norm_eps))
+            ext = {**batch, "tokens": torch.cat([batch["tokens"], t0], 1)}
+            _, cache = m.prefill(p, batch, cache_len)
+            dec, _ = m.decode_step(p, cache, t0, torch.full(
+                (B, 1), n0, dtype=torch.int32, device=device))
+            del cache
+            return dec, m.prefill(p, ext, cache_len)[0]
+
+        what = ("decode at 1 vs the teacher-forced decoder"
+                if cfg.is_encoder_decoder else
+                "prefill(S) + decode vs prefill(S+1)")
+        both = runs(dl32, dl16)
+        dec, full = decode_and_full(*both.pop("kernel f32"))
+        f32_gate(dec, full, what)
+        if bf16:
+            # each bf16 path's decode against the f32 plain path's longer
+            # prefill: the drift both paths share is bf16's
+            _, want = decode_and_full(*both.pop("xla f32"))
+            bf16_gate(*(float(diff(decode_and_full(*both[k])[0],
+                                   want)[0].max())
+                        for k in ("kernel bf16", "xla bf16")),
+                      what + ", against the f32 plain path")
+
+
+def serve_check_phase(st, device, card: str):
+    """``serve_checks`` on the served hymba-1.5b at its full depth."""
+    serve_checks(st["model"], st["params"], st["batch"], st["res"],
+                 st["model"].cfg.n_layers, None, device, card)
 
 
 def serve_trace_phase(st, card: str):
@@ -1674,6 +1794,173 @@ def serve_trace_phase(st, card: str):
                       f"{e.key[:40]} x{e.count} "
                       f"{e.self_device_time_total / 1e3:.2f} ms"
                       for e in top) + f" [{card}]", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the model zoo at full width (slice 7)
+# ---------------------------------------------------------------------------
+# arch, batch, prompt positions (patches or frames included), the depth of
+# the check twins and the tokens of the prefill + decode check (None: as
+# served). gemma2-9b's 6144 positions let its 4096 windows cut; gemma3-4b's
+# 32,768 + 8 positions pass MAX_FULL_CACHE, so it decodes from the
+# 1024-slot ring; internvl2-2b's prompt is 256 patches and 1664 tokens;
+# seamless-m4t-large-v2's 1024 frames. The check twins of gemma2-9b and
+# gemma3-4b are cut to 14 and 6 layers (5 local, 1 global): a full-depth
+# f32 twin of gemma2-9b is 37 GB beside the served 18.5 GB and its caches,
+# and gemma3-4b's plain attention over 32,768 positions takes about 0.2 s
+# a layer and call; minicpm3-4b's to 31 of 62, to keep the script's time
+# (its full-depth checks took 23 s on an H100). gemma3-4b's prefill +
+# decode check runs on the first 8191 tokens: the plain path (as the
+# reference's) takes a sequence that is not a whole number of 512-row
+# chunks as one block, and over 32,769 positions that block's f32 scores
+# are 34 GB
+ZOO = [
+    ("gemma2-9b", 2, 6144, 14, None),
+    ("gemma3-4b", 1, 32_768, 6, 8191),
+    ("olmoe-1b-7b", 4, 1920, None, None),
+    ("mamba2-780m", 4, 2048, None, None),
+    ("minicpm3-4b", 4, 1920, 31, None),
+    ("internvl2-2b", 4, 1920, None, None),
+    ("seamless-m4t-large-v2", 4, 1024, None, None),
+]
+# about 264 and 208 GB in bf16, over one 80 GB card: served reduced()
+ZOO_REDUCED = ("dbrx-132b", "command-r-plus-104b")
+ZOO_BF16_GB = {"dbrx-132b": 264, "command-r-plus-104b": 208}
+ZOO_REDUCED_PROMPT = 256
+ZOO_GEN = 8
+
+
+def zoo_expected(cfg) -> dict:
+    """The kernel launches one prefill of ``cfg`` makes: K6 once an
+    attention layer (the encoder's for an enc-dec; MLA's attention is
+    plain, as in the reference), by the tensor-core kernel in bf16 and the
+    CUDA-core kernel in f32; K7 once an SSM layer."""
+    from repro_torch.configs.base import ATTN_MLA, BLOCK_HYBRID, BLOCK_SSM
+    k6 = 0
+    if cfg.is_encoder_decoder:
+        k6 = cfg.n_encoder_layers
+    elif cfg.block_kind != BLOCK_SSM and cfg.attn_kind != ATTN_MLA:
+        k6 = cfg.n_layers
+    k7 = cfg.n_layers if cfg.block_kind in (BLOCK_SSM, BLOCK_HYBRID) else 0
+    k6_name = ("flash_attention" if cfg.dtype == "bfloat16"
+               else "flash_attention_f32")
+    return {k6_name: k6, "ssd_scan": k7}
+
+
+def zoo_cut(cfg, params: dict, layers: int):
+    """(cfg, params) of the first ``layers`` layers (views of the served
+    params; an enc-dec keeps as many encoder as decoder layers)."""
+    import dataclasses
+
+    from repro_torch import tree
+    if layers >= cfg.n_layers:
+        return cfg, params
+    ch = {"n_layers": layers}
+    if cfg.is_encoder_decoder:
+        ch["n_encoder_layers"] = layers
+    cut = {k: (tree.tree_map(lambda a: a[:layers], v)
+               if k in ("stack", "enc_stack", "dec_stack") else v)
+           for k, v in params.items()}
+    return dataclasses.replace(cfg, **ch), cut
+
+
+def zoo_dropless(cfg):
+    """A MoE config whose capacity reaches every token (capacity_factor =
+    E / K): a prefill then drops nothing, as a decode step does not."""
+    import dataclasses
+    if cfg.moe is None:
+        return cfg
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=cfg.moe.num_experts / cfg.moe.top_k))
+
+
+def zoo_arch(arch: str, batch_size: int, prompt: int, layers, check_tokens,
+             reduced: bool, device, card: str, counters) -> dict:
+    """Serve one architecture through ``repro_torch.launch.serve`` (random
+    init from a seed, bf16 at full width; a warm-up ``generate`` of 2
+    tokens, then the timed one of ``ZOO_GEN`` with the launch counts set
+    to 0 just before it and read just after), then ``serve_checks``.
+    Returns the timed run's launches and the arch's peak GiB."""
+    import torch
+    from repro_torch import tree
+    from repro_torch.launch import serve
+
+    torch.cuda.reset_peak_memory_stats()
+    (model, params, batch), setup_s = sync_seconds(
+        serve.setup, arch, reduced=reduced, batch=batch_size,
+        prompt_len=prompt, seed=INIT_SEED, impl="kernel", device=device)
+    init_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    cfg = model.cfg
+    n = sum(p.numel() for p in tree.leaves(params))
+    n0 = serve.stream_len(model, batch)
+    cache_len = model.cache_len_for(n0 + ZOO_GEN)
+    shapes = ", ".join(f"{k} {tuple(v.shape)}" for k, v in batch.items())
+    print(f"zoo {arch}: {'reduced() ' if reduced else ''}{cfg.n_layers} "
+          f"layers, d_model {cfg.d_model}, {cfg.n_heads} heads / "
+          f"{cfg.n_kv_heads} kv, head dim {cfg.resolved_head_dim}, {n} "
+          f"params in {cfg.dtype}; batch {batch_size} x {prompt} prompt "
+          f"positions ({shapes}), "
+          f"a {n0 + ZOO_GEN}-position stream in {cache_len} cache slots; "
+          f"setup {setup_s:.2f} s, init peak {init_peak:.2f} GiB [{card}]",
+          flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        serve.generate(model, params, batch, 2)             # warm-up
+        for c in counters:
+            c.reset_launches()
+        res = serve.generate(model, params, batch, ZOO_GEN)
+    counts = {k: v for c in counters for k, v in c.LAUNCHES.items()}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    steps = ZOO_GEN - 1
+    print(f"zoo {arch}: prefill {res['prefill_s'] * 1e3:.1f} ms "
+          f"({batch_size * prompt / res['prefill_s']:.0f} prompt tok/s), "
+          f"decode {res['decode_s'] * 1e3 / steps:.2f} ms a token "
+          f"({batch_size * steps / res['decode_s']:.1f} tok/s), serve peak "
+          f"{peak:.2f} GiB; launches {counts} [{card}]", flush=True)
+    out = res["tokens"]
+    check(out.shape == (batch_size, ZOO_GEN), f"{arch} tokens {out.shape}")
+    check(bool(((out >= 0) & (out < cfg.vocab)).all()),
+          f"{arch} generated ids inside the vocab")
+    for key in ("first_logits", "last_logits"):
+        check(res[key].shape == (batch_size, 1, cfg.vocab)
+              and bool(torch.isfinite(res[key]).all()),
+              f"{arch} {key} finite, (B, 1, vocab)")
+    want = zoo_expected(cfg)
+    for k, v in counts.items():
+        check(v == want.get(k, 0), f"{arch}: one prefill launches {k} "
+              f"{want.get(k, 0)} times (got {v})")
+    serve_checks(model, params, batch, res, layers or cfg.n_layers,
+                 check_tokens, device, card)
+    return counts, max(init_peak, peak,
+                       torch.cuda.max_memory_allocated() / 2 ** 30)
+
+
+def zoo_phase(device, card: str, counters) -> dict:
+    """Every architecture of the zoo but hymba-1.5b (phase 8) and
+    fedforecast-100m (phases 4-7): ``ZOO`` at full width, ``ZOO_REDUCED``
+    at ``reduced()``. Returns the launches of their timed runs, summed,
+    and the phase's peak GiB (each architecture resets the peak)."""
+    import torch
+    total: dict = {}
+    top = 0.0
+    todo = [(*row, False) for row in ZOO] + [
+        (a, 2, ZOO_REDUCED_PROMPT, None, None, True) for a in ZOO_REDUCED]
+    for arch, batch_size, prompt, layers, check_tokens, reduced in todo:
+        if reduced:
+            print(f"zoo {arch}: about {ZOO_BF16_GB[arch]} GB of weights in "
+                  "bf16 at full width, over one 80 GB card: served "
+                  f"reduced() (f32) [{card}]", flush=True)
+        t0 = time.perf_counter()
+        counts, peak = zoo_arch(arch, batch_size, prompt, layers,
+                                check_tokens, reduced, device, card,
+                                counters)
+        top = max(top, peak)
+        torch.cuda.empty_cache()
+        print(f"zoo {arch}: {time.perf_counter() - t0:.2f} s [{card}]",
+              flush=True)
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+    return total, top
 
 
 def run_phase(name: str, peaks: list, card: str, fn, *args):
@@ -1850,6 +2137,21 @@ def main() -> int:
               device, card)
     run_phase("serve trace", peaks, card, serve_trace_phase, serve_state,
               card)
+    del serve_state
+    torch.cuda.empty_cache()
+
+    # the phase resets the peak for each architecture: it reports its own
+    (zoo, zoo_peak), s = sync_seconds(zoo_phase, device, card, counters)
+    peaks.append(zoo_peak)
+    print(f"phase zoo: {s:.2f} s, peak device memory {zoo_peak:.2f} GiB "
+          f"[{card}]", flush=True)
+    print(f"zoo path: launches {zoo} (the timed runs' sum) [{card}]",
+          flush=True)
+    for k in ("flash_attention", "ssd_scan"):
+        check(zoo[k] > 0, f"{k} launched on the zoo path")
+    launches = {k: launches[k] + zoo.get(k, 0) for k in launches}
+    print(f"main path with the zoo: launches {launches} [{card}]",
+          flush=True)
 
     for k in kernels:
         k["launches"] = launches[k["name"]]

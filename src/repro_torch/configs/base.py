@@ -3,13 +3,13 @@
 The port keeps its own copy so that it imports nothing of the JAX
 package. The schema is the same frozen dataclass, so a config built here
 and one built there describe the same model; ``reduced()`` gives the same
-CPU smoke-test variant. Only the configs the port runs are registered.
+CPU smoke-test variant.
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Tuple
 
 ATTN_GQA = "gqa"          # grouped-query attention (covers MHA when kv==heads)
 ATTN_MLA = "mla"          # multi-head latent attention
@@ -172,3 +172,7 @@ def get_config(name: str) -> ModelConfig:
         raise KeyError(f"unknown arch {name!r}; known: {sorted(_REGISTRY)}")
     return _REGISTRY[name]
 
+
+def list_configs() -> Tuple[str, ...]:
+    from repro_torch import configs as _c  # noqa: F401  (registers)
+    return tuple(sorted(_REGISTRY))

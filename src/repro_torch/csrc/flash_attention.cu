@@ -11,8 +11,8 @@
 // q: (B, Sq, H, D), k and v: (B, Sk, Hkv, D), o: (B, Sq, H, D), each read or
 // written through its (b, s, h) element strides with d contiguous, so the
 // models' (B,S,H,D) layout needs no transposed copy (the TPU wrapper swaps
-// axes, flash_attention/ops.py:22-24). D in {32, 64, 128}; H a multiple of
-// Hkv (G = H / Hkv).
+// axes, flash_attention/ops.py:22-24). D in {32, 64, 128, 256}; H a multiple
+// of Hkv (G = H / Hkv).
 //
 // Bound: operations. 4*D FLOPs per visible (query, key) pair; at the serve
 // path's shape (B 4, H 25, S 2048, D 64, bf16) a global layer is 53.7
@@ -25,10 +25,15 @@
 // per (128-row q block, head, batch), the longest q blocks first: two
 // consumer warpgroups of 64 query rows each and one producer warp. The
 // producer's lane 0 loads the q block once and a 2-stage ring of K and V
-// tiles (128 keys, 64 at D 128) by TMA into shared memory swizzled as
-// wgmma reads it (128-byte rows, 64-byte at D 32; D 128 as two 64-column
-// panels), behind full/empty mbarriers. Each consumer warpgroup runs, a
-// tile at a time,
+// tiles (128 keys, 64 at D >= 128) by TMA into shared memory swizzled as
+// wgmma reads it (128-byte rows, 64-byte at D 32; D 128 and 256 as two and
+// four 64-column panels), behind full/empty mbarriers. At D 256 a CTA is
+// one consumer warpgroup of 64 rows and the producer warp (160 threads):
+// its O accumulator is 128 f32 registers a thread, which with S and P
+// needs about 220, and ptxas gives a thread of a 288-thread CTA 168 (three
+// warps share one SM sub-partition's 16,384 registers) but of a
+// 160-thread CTA 255 (two warps). Its shared memory is 32 KiB of Q and a
+// 128 KiB ring. Each consumer warpgroup runs, a tile at a time,
 //   S = Q K^T        wgmma, bf16 operands from shared memory, f32 sums;
 //   online softmax   in registers and f32: scale, accurate tanhf softcap,
 //                    running max m and sum l; the scale and log2 e fold
@@ -62,7 +67,8 @@
 
 // float32 -> flash_fwd_k, on the CUDA cores: the bf16 tensor cores cannot
 // hold the 2e-5 float32 tolerance. One CTA of 256 threads per (64-row q
-// block, head, batch); 64-key K/V tiles staged through shared memory; a
+// block, head, batch); 64-key K/V tiles staged through shared memory (at
+// D 256, 219,136 bytes of the 232,448 a block may have); a
 // thread owns 4 query rows (ty + 16 i) and 4 keys (tx + 16 j) of the
 // 64 x 64 score tile and the same rows times D/16 output columns; row max
 // and sum go across the 16 tx lanes by shuffles; m, l, the probabilities
@@ -279,6 +285,9 @@ int dispatch_f32(int d, const void* q, const void* k, const void* v,
     case 128:
       return launch<128>(q, k, v, o, b, h, hkv, sq, sk, st, scale, causal,
                          window, softcap, stream);
+    case 256:
+      return launch<256>(q, k, v, o, b, h, hkv, sq, sk, st, scale, causal,
+                         window, softcap, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -291,10 +300,8 @@ int dispatch_f32(int d, const void* q, const void* k, const void* v,
 // ---------------------------------------------------------------------------
 namespace wg {
 
-constexpr int kBQ = 128;                // query rows a CTA
+constexpr int kBQ = 128;                // query rows a CTA (D < 256)
 constexpr int kStages = 2;              // K/V ring depth
-constexpr int kConsumers = 256;         // two warpgroups of 64 rows each
-constexpr int kThreads = kConsumers + 32;   // + the producer warp
 constexpr float kLog2e = 1.4426950408889634f;
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -545,15 +552,19 @@ struct Tile {
   static constexpr int PW = D < 64 ? D : 64;    // columns a swizzled panel
   static constexpr int SW = 2 * PW;             // bytes a panel row
   static constexpr int NP = D / PW;             // panels
-  static constexpr int BK = D == 128 ? 64 : 128;    // keys a tile
-  static constexpr uint32_t kQBytes = kBQ * D * 2;
+  // query rows a CTA: 64 at D 256 (one consumer warpgroup; see the top)
+  static constexpr int BQ = D == 256 ? 64 : kBQ;
+  static constexpr int kConsumers = 2 * BQ;     // a warpgroup per 64 rows
+  static constexpr int kThreads = kConsumers + 32;  // + the producer warp
+  static constexpr int BK = D >= 128 ? 64 : 128;    // keys a tile
+  static constexpr uint32_t kQBytes = BQ * D * 2;
   static constexpr uint32_t kKVBytes = BK * D * 2;  // one K or V tile
   static constexpr size_t kSmem =
       1024 + kQBytes + 2 * kStages * kKVBytes + 8 * (2 * kStages + 1);
 };
 
 template <int D>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(Tile<D>::kThreads, 1)
 flash_wgmma_k(const __grid_constant__ CUtensorMap qmap,
               const __grid_constant__ CUtensorMap kmap,
               const __grid_constant__ CUtensorMap vmap,
@@ -562,6 +573,7 @@ flash_wgmma_k(const __grid_constant__ CUtensorMap qmap,
               int causal, int window, float softcap) {
   using T = Tile<D>;
   constexpr int PW = T::PW, SW = T::SW, NP = T::NP, BK = T::BK;
+  constexpr int BQ = T::BQ, kConsumers = T::kConsumers;
   constexpr int SN = BK / 2;            // S accumulator floats a thread
   constexpr int ON = D / 2;             // O accumulator floats a thread
   extern __shared__ uint8_t smem_raw[];
@@ -572,10 +584,10 @@ flash_wgmma_k(const __grid_constant__ CUtensorMap qmap,
   uint64_t* empty = full + kStages;
   uint64_t* qbar = empty + kStages;
 
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;   // longest first
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;    // longest first
   const int h = blockIdx.y, b = blockIdx.z, hk = h / group;
   int k_lo = 0, k_hi = sk;
-  if (causal) k_hi = min(sk, q0 + kBQ);
+  if (causal) k_hi = min(sk, q0 + BQ);
   if (window > 0) k_lo = max(0, q0 - window + 1);
   k_lo = (k_lo / BK) * BK;
   const int n_tiles = k_hi > k_lo ? (k_hi - k_lo + BK - 1) / BK : 0;
@@ -595,7 +607,7 @@ flash_wgmma_k(const __grid_constant__ CUtensorMap qmap,
     if (tid == kConsumers) {
       mbar_expect_tx(qbar, T::kQBytes);
       for (int p = 0; p < NP; ++p) {
-        tma_load(qs + p * kBQ * SW, &qmap, qbar, p * PW, h, q0, b);
+        tma_load(qs + p * BQ * SW, &qmap, qbar, p * PW, h, q0, b);
       }
       for (int i = 0; i < n_tiles; ++i) {
         const int st = i % kStages;
@@ -642,7 +654,7 @@ flash_wgmma_k(const __grid_constant__ CUtensorMap qmap,
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
       const int p = kk * 16 / PW, off = (kk * 16 % PW) * 2;
-      const uint64_t da = desc(qw + p * kBQ * SW + off, SW, 16);
+      const uint64_t da = desc(qw + p * BQ * SW + off, SW, 16);
       const uint64_t db = desc(kt + p * BK * SW + off, SW, 16);
       if constexpr (BK == 128) {
         if (kk == 0) {
@@ -820,7 +832,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int b,
   using T = Tile<D>;
   CUtensorMap qmap, kmap, vmap;
   // Sk = 0 loads nothing; the maps only need a valid extent
-  if (!make_map(&qmap, q, D, h, sq, b, st, T::PW, kBQ) ||
+  if (!make_map(&qmap, q, D, h, sq, b, st, T::PW, T::BQ) ||
       !make_map(&kmap, k, D, hkv, sk > 0 ? sk : 1, b, st + 3, T::PW, T::BK) ||
       !make_map(&vmap, v, D, hkv, sk > 0 ? sk : 1, b, st + 6, T::PW, T::BK)) {
     return (int)cudaErrorInvalidValue;
@@ -834,8 +846,8 @@ int launch(const void* q, const void* k, const void* v, void* o, int b,
                                (int)cudaSharedmemCarveoutMaxShared);
   }
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((sq + kBQ - 1) / kBQ, h, b);
-  flash_wgmma_k<D><<<grid, kThreads, T::kSmem, stream>>>(
+  dim3 grid((sq + T::BQ - 1) / T::BQ, h, b);
+  flash_wgmma_k<D><<<grid, T::kThreads, T::kSmem, stream>>>(
       qmap, kmap, vmap, static_cast<__nv_bfloat16*>(o), sq, sk, h / hkv,
       st[9], st[10], st[11], scale, causal, window, softcap);
   return (int)cudaGetLastError();
@@ -892,6 +904,9 @@ int flash_attention_bf16_fwd(const void* q, const void* k, const void* v,
                             causal, window, softcap, st);
     case 128:
       return wg::launch<128>(q, k, v, o, b, h, hkv, sq, sk, strides, scale,
+                             causal, window, softcap, st);
+    case 256:
+      return wg::launch<256>(q, k, v, o, b, h, hkv, sq, sk, strides, scale,
                              causal, window, softcap, st);
     default:
       return (int)cudaErrorInvalidValue;

@@ -10,8 +10,9 @@ yet).
 The kernel follows the inputs' type, a fixed rule: bfloat16 runs the
 tensor-core kernel (wgmma, TMA; counted as ``flash_attention``), float32
 the CUDA-core kernel (counted as ``flash_attention_f32``), because bf16
-tensor cores cannot hold float32's 2e-5 tolerance. The bf16 kernel's TMA
-maps need 16-byte-aligned bases and (b, s, h) strides.
+tensor cores cannot hold float32's 2e-5 tolerance. Both take head dims
+D in {32, 64, 128, 256}. The bf16 kernel's TMA maps need 16-byte-aligned
+bases and (b, s, h) strides.
 """
 from __future__ import annotations
 
@@ -22,7 +23,7 @@ import torch
 from repro_torch.kernels.flash_attention import kernel as _k
 from repro_torch.kernels.flash_attention import ref as _ref
 
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 128, 256)
 
 # kernel launches since the last reset (plain-version calls on CPU tensors
 # do not count)

@@ -31,16 +31,15 @@ from repro_torch.kernels.ssd_scan import kernel as skernel
 
 FA_PV = ("          wgmma_rs_n64(o + 32 * p, ph[kk], db);\n"
          "          wgmma_rs_n64(o + 32 * p, pl[kk], db);")
-FA_BK64 = ("static constexpr int BK = D == 128 ? 64 : 128;",
+FA_BK64 = ("static constexpr int BK = D >= 128 ? 64 : 128;",
            "static constexpr int BK = 64;")
 
 
 def fa_rows(rows: int):
-    """K6 with ``rows`` query rows a CTA: rows / 64 consumer warpgroups."""
-    return [("constexpr int kBQ = 128;                // query rows a CTA",
-             f"constexpr int kBQ = {rows};"),
-            ("constexpr int kConsumers = 256;         // two warpgroups of "
-             "64 rows each", f"constexpr int kConsumers = {2 * rows};")]
+    """K6 with ``rows`` query rows a CTA (below D 256): rows / 64 consumer
+    warpgroups."""
+    return [("constexpr int kBQ = 128;                // query rows a CTA "
+             "(D < 256)", f"constexpr int kBQ = {rows};")]
 
 
 # name: (source, [(old, new), ...], exact)
@@ -48,7 +47,8 @@ VARIANTS = {
     "K6 3-stage ring": ("flash_attention", [(
         "constexpr int kStages = 2;", "constexpr int kStages = 3;")], True),
     "K6 64-key tiles, two CTAs an SM": ("flash_attention", [FA_BK64, (
-        "__launch_bounds__(kThreads, 1)", "__launch_bounds__(kThreads, 2)")],
+        "__launch_bounds__(Tile<D>::kThreads, 1)",
+        "__launch_bounds__(Tile<D>::kThreads, 2)")],
         False),
     "K6 three consumer warpgroups, 64-key tiles": (
         "flash_attention", [FA_BK64] + fa_rows(192), False),

@@ -65,20 +65,33 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
-def mlp_init(gen: torch.Generator, d_model: int, d_ff: int) -> dict:
-    """SwiGLU weights (no biases: ``use_bias`` is not ported yet)."""
-    return {
+def mlp_init(gen: torch.Generator, d_model: int, d_ff: int,
+             use_bias: bool = False) -> dict:
+    """SwiGLU weights, and zero biases when ``use_bias``."""
+    p = {
         "w_gate": dense_init(gen, (d_model, d_ff)),
         "w_up": dense_init(gen, (d_model, d_ff)),
         "w_down": dense_init(gen, (d_ff, d_model)),
     }
+    if use_bias:
+        dev = gen.device
+        p["b_gate"] = torch.zeros(d_ff, dtype=torch.float32, device=dev)
+        p["b_up"] = torch.zeros(d_ff, dtype=torch.float32, device=dev)
+        p["b_down"] = torch.zeros(d_model, dtype=torch.float32, device=dev)
+    return p
 
 
 def mlp_apply(p: dict, x: torch.Tensor) -> torch.Tensor:
     dtype = x.dtype
     gate = x @ p["w_gate"].to(dtype)
     up = x @ p["w_up"].to(dtype)
-    return (F.silu(gate) * up) @ p["w_down"].to(dtype)
+    if "b_gate" in p:
+        gate = gate + p["b_gate"].to(dtype)
+        up = up + p["b_up"].to(dtype)
+    out = (F.silu(gate) * up) @ p["w_down"].to(dtype)
+    if "b_down" in p:
+        out = out + p["b_down"].to(dtype)
+    return out
 
 
 def chunked_softmax_xent(hidden: torch.Tensor, unembed: torch.Tensor,

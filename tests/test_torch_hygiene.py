@@ -87,6 +87,11 @@ def test_entry_points_need_cuda_unless_asked_for_cpu():
         lambda: build_model("hymba-1.5b"),
         lambda: build_model("hymba-1.5b", impl="kernel"),
         lambda: serve.setup("hymba-1.5b"),
+        lambda: build_model("gemma2-9b", impl="kernel"),
+        lambda: build_model("olmoe-1b-7b"),
+        lambda: build_model("seamless-m4t-large-v2"),
+        lambda: serve.setup("internvl2-2b"),
+        lambda: serve.main(["--arch", "minicpm3-4b", "--gen", "2"]),
         lambda: serve.main(["--arch", "hymba-1.5b", "--gen", "2"]),
         lambda: MaskedF32Sink(16),
         lambda: ModularSink(16, mbits=16, grid=0.01),
@@ -142,6 +147,18 @@ def test_import_check_covers_the_serve_slice():
               "repro_torch.kernels.ssd_scan.ops", "repro_torch.models.ssm",
               "repro_torch.launch.serve", "repro_torch.configs.hymba_1p5b"):
         assert m in mods
+
+
+def test_import_check_covers_the_model_zoo():
+    from repro_torch.configs import list_configs
+    mods = _modules()
+    for m in ("repro_torch.models.moe", "repro_torch.models.encdec",
+              "repro_torch.models.attention", "repro_torch.models.model"):
+        assert m in mods
+    for arch in list_configs():
+        name = arch.replace("-", "_").replace(".", "p")
+        assert f"repro_torch.configs.{name}" in mods, arch
+    assert len(list_configs()) == 11
 
 
 CONTROL_PLANE = ("metadata", "crypto", "serialization", "telemetry",

@@ -144,9 +144,3 @@ def test_port_init_shapes_and_distributions():
     assert abs(float(tp["embed"].std()) - 0.02) < 2e-3
     again = tm.init(tm.generator(0))
     assert torch.equal(again["embed"], tp["embed"])
-
-
-def test_unported_blocks_raise():
-    _, tcfg = _cfgs(block_kind="moe")
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tbuild(tcfg, device="cpu")

@@ -166,12 +166,13 @@ def test_serve_positions_count_meta_tokens():
     """The serve loop decodes at n_meta + S + i: its last step's logits
     equal a prefill over the prompt and the tokens it generated. Decoding
     at S + i (the reference serve loop's positions) does not."""
-    model, params, tokens = serve.setup("hymba-1.5b", batch=B, prompt_len=20,
-                                        seed=3, impl="kernel", device="cpu")
+    model, params, batch = serve.setup("hymba-1.5b", batch=B, prompt_len=20,
+                                       seed=3, impl="kernel", device="cpu")
+    tokens = batch["tokens"]
     n_meta = model.cfg.n_meta_tokens
     assert n_meta == 8
     with torch.no_grad():
-        res = serve.generate(model, params, tokens, 4)
+        res = serve.generate(model, params, batch, 4)
         out = res["tokens"]
         assert out.shape == (B, 4)
         stream = torch.cat([tokens, out[:, :3]], 1)
@@ -209,13 +210,6 @@ def test_cache_init_matches_jax_tree():
     jc = jbuild(jcfg).init_cache(2, 40)
     tc = params_to_numpy(tbuild(tcfg, device="cpu").init_cache(2, 40))
     _assert_tree_close(tc, jax.tree.map(np.asarray, jc))
-
-
-def test_long_cache_raises():
-    model = tbuild(tget("hymba-1.5b").reduced(), device="cpu")
-    assert model.cache_len_for(4096) == 4096
-    with pytest.raises(NotImplementedError, match="ring cache"):
-        model.cache_len_for(40_000)
 
 
 def test_client_predict_matches_reference_on_hymba():
