@@ -78,6 +78,34 @@ Phases (every failed check exits non-zero):
    launches no kernel (its fold is plain PyTorch, as the reference's is
    numpy). Prints wall, per-commit seconds, host seconds by span and the
    board's bytes.
+5f. ``train pod``: ``repro_torch.launch.train.run_pod`` as ``--mode pod
+   --full`` runs it: ``fedforecast-100m`` at full width, 2 silos stacked
+   on the card (every leaf with a leading silo dim, placed by
+   ``param_pspecs`` over a one-card mesh), batch 8 x 256, 8 steps, FedAvg
+   every 4, lr 3e-4, seed 0. Gates: finite per-silo losses; after each
+   FedAvg the silos bitwise equal and within 1 f32 ulp of the f64 mean;
+   at step 0 silo 1 bitwise equal to ``make_train_step`` alone on its
+   slice and batch; the int8 ``make_fedavg_pod_step`` of the last trained
+   stack within each leaf's largest per-silo scale + 1e-6 of the f32
+   mean, silos bitwise equal. The path launches no kernel (the step runs
+   ``impl="xla"`` and the FedAvg is plain PyTorch, as the reference's).
+   Prints the median pod-step and silo-step ms, the fp32 and int8 FedAvg
+   ms, the peak GiB and, from one traced pod step, the device idle share.
+5g. ``train sim``: ``run_sim`` as ``--mode sim --full --rounds 1`` runs
+   it (3 silos, 5 local steps of 4 x 64, secure aggregation on). Gates:
+   done, chain intact, finite losses, K1 launched. Prints wall and
+   per-round seconds, host seconds by span, the board's bytes and the
+   host codec seconds of one 465.6 MB message, as ``fl run`` does.
+5h. ``agg split``: the four ``sharding.agg`` ops over ``agg_mesh([card] *
+   2)`` and ``agg_mesh([card] * 3)`` (the T split on one card), at K1 (3,
+   T), K2 (2, T), K3 (3, Tp), K4 (1, Tp) and K4 with corrections (2, Tp),
+   and again at T - 77 (K1, K2) and Tp - 1024 (K3, K4, whose T stays a
+   1024 multiple) so that the padding runs. Gates: K1-K3 within 1e-5 of
+   the unsplit launch, K4 bitwise, one launch a shard, and the 2-shard
+   K1 over phase 4's three masked buffers bitwise equal to what a
+   ``MaskedF32Sink`` (which takes no mesh) finalizes from them. Prints
+   the split and unsplit ms side by side and how many split results are
+   bitwise equal.
 6. The compressed planes at full width, on phase 4's trained silos
    (deltas = ``pack_delta(trained, init)``, T padded to Tp, a 1024
    multiple):
@@ -158,12 +186,17 @@ Launch counters are reset before phase 4 and read after phase 5 (K1 and
 K2 must have run), reset before phase 5b and read after it (K1 must have
 run), reset before 5c and read after 5d (the ``fleet`` path: K1 must
 have run), reset before 5e and read after it (the ``async`` path: no
-kernel), reset again before phase 6a and read after 6e (K3, K4
+kernel), reset before 5f and read after it (the ``train pod`` path: no
+kernel), reset before 5g and read after it (the ``train sim`` path: K1
+must have run); 5h reads the counters around each checked split call and
+leaves its timing calls out (the ``agg split`` path: K1, K2, K3 and K4
+in both variants, once a shard);
+reset again before phase 6a and read after 6e (K3, K4
 in both variants, K5 and K1 must have run), and reset before phase 8's
 timed serve run and read after it (K6's tensor-core kernel and K7 once a
 layer, K6's f32 kernel never), and around each timed generate of phase
 9 (the ``zoo`` path, summed); the kernels line gives the sum of the
-seven paths. Each phase prints its seconds and peak device memory. The
+ten paths. Each phase prints its seconds and peak device memory. The
 line before the last is the ``kernels`` JSON record; the last line is the
 device record.
 """
@@ -172,7 +205,6 @@ from __future__ import annotations
 import hashlib
 import json
 import math
-import re
 import statistics
 import subprocess
 import sys
@@ -959,7 +991,7 @@ def print_board(what: str, stats: dict, card: str):
           f"{stats['fetches']} [{card}]", flush=True)
 
 
-def codec_seconds(buf, card: str):
+def codec_seconds(buf, card: str, what: str = "fl run"):
     """Host seconds of one board message the size of a masked update:
     the board's msgpack, encrypt (SHAKE-256 stream + HMAC), decrypt and
     unpack, as ``ClientCommunicator.post`` and ``ServerCommunicator.
@@ -972,7 +1004,7 @@ def codec_seconds(buf, card: str):
     pt, s_dec = host_seconds(crypto.decrypt, key, ct)
     out, s_unpack = host_seconds(serialization.unpack, pt)
     check(out["packed"].tobytes() == host.tobytes(), "codec round trip")
-    print(f"fl run codec: one {len(blob)} B message: to host {s_host:.3f} s, "
+    print(f"{what} codec: one {len(blob)} B message: to host {s_host:.3f} s, "
           f"pack {s_pack:.3f} s, encrypt {s_enc:.3f} s, decrypt "
           f"{s_dec:.3f} s, unpack {s_unpack:.3f} s [{card}]", flush=True)
 
@@ -1337,6 +1369,321 @@ def async_phase(state, device, card: str, reduced: bool = False):
           + f"; predict {s_predict:.3f} s [{card}]", flush=True)
     print_host_seconds("async run", host, ASYNC_SPANS, card)
     print_board("async run", server.board.stats, card)
+
+
+# ---------------------------------------------------------------------------
+# phases 5f-5h: the training launcher (pod and sim modes) and the T-split
+# aggregation
+# ---------------------------------------------------------------------------
+POD_STEPS, POD_SYNC = 8, 4
+POD_SYNC_ULPS = 1.0        # FedAvg vs the f64 mean of the two silos
+SPLIT_SHARDS = (2, 3)      # agg_mesh([card] * n): the split on one card
+SPLIT_SHORT = 77           # K1/K2 also at T - 77, K3/K4 at Tp - CHUNK
+
+
+def ulps_off(got, exact) -> float:
+    """Largest |got - exact| over f32 ulps of |got| (``exact`` in f64)."""
+    import torch
+    mag = got.abs()
+    ulp = (torch.nextafter(mag, torch.full_like(mag, math.inf)) - mag)
+    return float(((got.double() - exact).abs() / ulp.double()).max())
+
+
+def traced_busy(fn, *args):
+    """One call of ``fn`` under ``torch.profiler``: (device busy ms, kernel
+    launches, the four longest kernels, traced wall s)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, traced_s = sync_seconds(fn, *args)
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    check(busy_ms > 0, "the profiler saw device time")
+    top = sorted(kernels, key=lambda e: e.self_device_time_total,
+                 reverse=True)[:4]
+    return (busy_ms, sum(e.count for e in kernels),
+            "; ".join(f"{e.key[:48]} {e.self_device_time_total / 1e3:.2f} ms"
+                      for e in top), traced_s)
+
+
+def train_pod_phase(device, card: str, reduced: bool = False):
+    """5f: ``repro_torch.launch.train.run_pod`` as ``--mode pod --full``
+    runs it: 2 silos stacked on the card, batch 8 x 256, 8 steps, FedAvg
+    every 4, lr 3e-4, seed 0. Gates: finite per-silo losses; after each
+    FedAvg the two silos bitwise equal, and within 1 f32 ulp of the f64
+    mean of the trained silos; at step 0 silo 1 bitwise equal to
+    ``make_train_step`` alone on its slice and batch; the int8 FedAvg of
+    the last trained stack within each leaf's largest per-silo scale +
+    1e-6 of the f32 mean, both silos bitwise equal. ``reduced`` runs the
+    2-layer variant (a CPU rehearsal)."""
+    import numpy as np
+    import torch
+    from repro_torch import tree as _tree
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.training import (fedavg_pod_params,
+                                      make_fedavg_pod_step,
+                                      make_multipod_train_step,
+                                      make_train_step)
+    from repro_torch.training.steps import silo
+
+    args = train.parse_args(
+        ["--mode", "pod", "--steps", str(POD_STEPS), "--sync-every",
+         str(POD_SYNC), "--batch-size", str(BATCH_SIZE), "--seq-len",
+         str(SEQ_LEN), "--lr", str(LR), "--seed", "0", "--device",
+         str(device)] + ([] if reduced else ["--full"]))
+    cfg = get_config(args.arch)
+    cfg = cfg.reduced() if reduced else cfg
+    model = build_model(cfg, device=device)
+    opt = adamw(args.lr)
+    seen = {"ulps": 0.0, "syncs": 0}
+
+    def on_step(i, st):
+        trained, params = st["trained"], st["params"]
+        if i == 0:
+            before_p, before_o = st["before"]
+            p1, _, m1 = make_train_step(model, opt)(
+                silo(before_p, 1), silo(before_o, 1), silo(st["batch"], 1))
+            same = all(torch.equal(a, b) for a, b in zip(
+                _tree.leaves(silo(trained, 1)), _tree.leaves(p1)))
+            check(same and torch.equal(st["metrics"]["loss"][1], m1["loss"]),
+                  "step 0: silo 1 of the pod step == make_train_step alone "
+                  "on its slice and batch, bitwise")
+        if not st["synced"]:
+            return
+        for t, p in zip(_tree.leaves(trained), _tree.leaves(params)):
+            check(torch.equal(p[0], p[1]),
+                  f"step {i}: the silos are bitwise equal after FedAvg")
+            seen["ulps"] = max(seen["ulps"],
+                               ulps_off(p[0], t.double().mean(0)))
+        seen["syncs"] += 1
+        seen["trained"] = trained
+
+    out = train.run_pod(args, on_step=on_step)
+    check(bool(torch.isfinite(torch.from_numpy(out["losses"])).all()),
+          f"finite per-silo losses {out['losses'].tolist()}")
+    check(seen["syncs"] == POD_STEPS // POD_SYNC,
+          f"{POD_STEPS // POD_SYNC} FedAvgs (got {seen['syncs']})")
+    check(seen["ulps"] <= POD_SYNC_ULPS,
+          f"FedAvg within {POD_SYNC_ULPS} ulp of the f64 mean: "
+          f"{seen['ulps']:.3g}")
+
+    stack = seen.pop("trained")
+    qstep = make_fedavg_pod_step(quantize=True)
+    q = qstep(stack)
+    q_err, q_bound = 0.0, math.inf
+    for t, r in zip(_tree.leaves(stack), _tree.leaves(q)):
+        check(torch.equal(r[0], r[1]), "int8 FedAvg: silos bitwise equal")
+        dims = tuple(range(1, t.dim()))
+        scale = float((torch.amax(t.abs(), dim=dims) if dims
+                       else t.abs()).max()) / 127.0
+        err = float((r[0] - t.mean(0)).abs().max())
+        check(err <= scale + 1e-6,
+              f"int8 FedAvg within the largest per-silo scale: {err:.3g} > "
+              f"{scale:.3g} + 1e-6")
+        q_err = max(q_err, err)
+        q_bound = min(q_bound, scale + 1e-6)
+    fp32_ms = median_ms(lambda: fedavg_pod_params(stack))
+    int8_ms = median_ms(lambda: qstep(stack))
+    nbytes = sum(t.numel() * t.element_size() for t in _tree.leaves(stack))
+    del q, stack
+
+    step = make_multipod_train_step(model, opt, 2)
+    toks = train.pod_batch(np.random.default_rng(1), cfg.vocab,
+                           args.batch_size, args.seq_len)
+    batch = {"tokens": torch.from_numpy(toks).to(device)}
+    step(out["params"], out["opt_state"], batch)           # warm-up
+    busy_ms, n_launch, top, traced_s = traced_busy(
+        step, out["params"], out["opt_state"], batch)
+    step_ms = statistics.median(out["step_s"]) * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses = out["losses"]
+    print(f"train pod: fedforecast-100m {'reduced' if reduced else 'full '
+          'width'}, 2 silos stacked on the card, {POD_STEPS} steps of "
+          f"{args.batch_size} x {args.seq_len}, FedAvg every {POD_SYNC}; "
+          f"losses silo 0 {[round(v, 4) for v in losses[:, 0].tolist()]}, "
+          f"silo 1 {[round(v, 4) for v in losses[:, 1].tolist()]}; FedAvg "
+          f"within {seen['ulps']:.3g} ulp of the f64 mean (gate "
+          f"{POD_SYNC_ULPS}); step 0 silo 1 == lone step bitwise; int8 "
+          f"FedAvg max err {q_err:.3g} (<= largest per-silo scale + 1e-6) "
+          f"[{card}]", flush=True)
+    print(f"train pod: pod step median {step_ms:.2f} ms ("
+          f"{step_ms / 2:.2f} ms a silo-step; first "
+          f"{out['step_s'][0] * 1e3:.2f}); FedAvg fp32 {fp32_ms:.4f} ms, "
+          f"int8 {int8_ms:.4f} ms over {nbytes} B of params; peak "
+          f"{peak:.2f} GiB [{card}]", flush=True)
+    print(f"trace: pod step device busy {busy_ms:.2f} ms in {n_launch} "
+          f"kernel launches; untraced step median {step_ms:.2f} ms -> "
+          f"device idle share {1 - busy_ms / step_ms:.3f}; traced step "
+          f"{traced_s * 1e3:.2f} ms; top: {top} [{card}]", flush=True)
+
+
+def train_sim_phase(state, device, card: str, reduced: bool = False):
+    """5g: ``repro_torch.launch.train.run_sim`` as ``--mode sim --full
+    --rounds 1`` runs it, the launcher's defaults otherwise (3 silos, 5
+    local steps of 4 x 64, secure aggregation on), with a telemetry bundle
+    on the board. Gates: done, the chain verifies, finite losses (K1 is
+    read by the caller)."""
+    from repro_torch.core import Telemetry
+    from repro_torch.launch import train
+
+    args = train.parse_args(["--mode", "sim", "--rounds", "1", "--device",
+                             str(device)] + ([] if reduced else ["--full"]))
+    tel = Telemetry(enabled=True, recorder_cap=1 << 20)
+    out = train.run_sim(args, telemetry=tel)
+    con = out["consortium"]
+    check(out["phase"] == "done", f"the sim run ends in done "
+          f"(got {out['phase']})")
+    check(out["chain_ok"], "the metadata chain verifies")
+    run = con.server.run
+    losses = [v for h in run.history for v in h["train_losses"].values()]
+    losses += list(out["report"]["loss_curve"])
+    check(len(run.history) == 1 and all(math.isfinite(v) for v in losses),
+          f"one round, finite losses {losses}")
+    host, by_round = span_seconds(tel, out["run_id"])
+    print(f"train sim: fedforecast-100m {'reduced' if reduced else 'full '
+          'width'}, {args.silos} silos, {args.rounds} secure round x "
+          f"{args.local_steps} steps of {args.batch_size} x {args.seq_len}; "
+          f"phase {out['phase']}, chain intact; losses "
+          f"{[round(v, 4) for v in losses]} [{card}]", flush=True)
+    print(f"train sim: wall {out['wall_s']:.3f} s over "
+          f"{con.scheduler.passes} passes; per-round s " + ", ".join(
+              f"r{k} {v:.3f}" for k, v in sorted(by_round.items()))
+          + f" [{card}]", flush=True)
+    print_host_seconds("train sim", host, FL_SPANS, card)
+    print_board("train sim", con.server.board.stats, card)
+    codec_seconds(state["masked"][SILOS[0]], card, "train sim")
+
+
+def agg_split_phase(state, device, card: str) -> dict:
+    """5h: the four ``sharding.agg`` ops over ``agg_mesh([card] * 2)`` and
+    ``agg_mesh([card] * 3)`` at the round's shapes (K1 (3, T), K2 (2, T),
+    K3 (3, Tp), K4 (1, Tp), K4 with corrections (2, Tp)) and at T - 77
+    (K1, K2) or Tp - CHUNK (K3, K4: their T stays a CHUNK multiple), held
+    against the unsplit launch: K1-K3 within 1e-5, K4 bitwise, one launch
+    a shard; then the 2-shard K1 over phase 4's three masked buffers,
+    bitwise equal to a ``MaskedF32Sink`` folding them. Returns the
+    launches of the checked split calls, read from the counters (the
+    timing calls are left out)."""
+    import torch
+    from repro_torch.core.streaming import MaskedF32Sink
+    from repro_torch.kernels.compressed_agg import ops as cops
+    from repro_torch.kernels.secure_agg import ops as sops
+    from repro_torch.sharding import agg as shard
+
+    meshes = {n: shard.agg_mesh([device] * n) for n in SPLIT_SHARDS}
+    t = state["T"]
+    tp = t + (-t) % CHUNK
+    gen = torch.Generator(device=device).manual_seed(8765)
+
+    def uniform(lo, hi, *shape):
+        return torch.rand(*shape, generator=gen, device=device) * (hi - lo) \
+            + lo
+
+    def residues(*shape):            # mod 2**16, as int32 storage
+        return torch.randint(0, 1 << 16, shape, generator=gen,
+                             device=device, dtype=torch.int32)
+
+    x3 = torch.stack([state["masked"][c] for c in SILOS])
+    c2 = torch.stack([state["plain"][c] for c in SILOS[:2]])
+    q3 = torch.randint(-127, 128, (3, tp), generator=gen, device=device,
+                       dtype=torch.int8)
+    s3 = uniform(1e-6, 1e-2, 3, tp // CHUNK)
+    grid = uniform(1e-6, 1e-2, tp // CHUNK)
+    z1, z2, zc2 = residues(1, tp), residues(2, tp), residues(2, tp)
+    w3, w2 = uniform(0.5, 1.5, 3), uniform(0.5, 1.5, 2)
+
+    def cut(a, width):
+        return a[..., :width].contiguous()
+
+    def cases(short: bool):
+        tt = t - SPLIT_SHORT if short else t
+        tq = tp - CHUNK if short else tp
+        x, xc, cc = cut(x3, tt), cut(x3[:2], tt), cut(c2, tt)
+        q, s = cut(q3, tq), cut(s3, tq // CHUNK)
+        g = cut(grid, tq // CHUNK)
+        a1, a2, ac = cut(z1, tq), cut(z2, tq), cut(zc2, tq)
+        return [
+            ("masked_sum", f"K1 (3, {tt})", sops.masked_sum,
+             shard.sharded_masked_sum, (x, w3), {}),
+            ("masked_sum_corrected", f"K2 (2, {tt})",
+             sops.masked_sum_corrected, shard.sharded_masked_sum_corrected,
+             (xc, cc, w2), {}),
+            ("dequant_reduce", f"K3 (3, {tq})", cops.dequant_reduce,
+             shard.sharded_dequant_reduce, (q, s, w3), {}),
+            ("masked_dequant_reduce", f"K4 (1, {tq})",
+             cops.masked_dequant_reduce, shard.sharded_masked_dequant_reduce,
+             (a1, g), {"modulus_bits": 16}),
+            ("masked_dequant_reduce_corrected", f"K4+corr (2, {tq})",
+             cops.masked_dequant_reduce, shard.sharded_masked_dequant_reduce,
+             (a2, g), {"modulus_bits": 16, "corr": ac}),
+        ]
+
+    def counts():
+        return {**sops.LAUNCHES, **cops.LAUNCHES}
+
+    tally = {k: 0 for k in counts()}
+    bitwise = {}
+    for short in (False, True):
+        for name, what, plain, split, a, kw in cases(short):
+            ref = plain(*a, **kw)
+            times = [median_ms(lambda f=plain, a=a, kw=kw: f(*a, **kw))] \
+                if not short else []
+            for n, mesh in meshes.items():
+                before = counts()
+                got = split(*a, **kw, mesh=mesh)
+                after = counts()
+                delta = {k: after[k] - before[k] for k in after}
+                if device.type == "cuda":    # the plain versions count none
+                    check(delta[name] == n and sum(delta.values()) == n,
+                          f"{what} over {n} shards launches {name} once a "
+                          f"shard: {delta}")
+                tally[name] += delta[name]
+                check(got.shape == ref.shape, f"{what}: split shape")
+                err = float((got - ref).abs().max())
+                same = torch.equal(got, ref)
+                if name.startswith("masked_dequant"):
+                    check(same, f"{what} over {n} shards bitwise equal to "
+                          f"the unsplit launch (max err {err:.3g})")
+                else:
+                    check(err <= KERNEL_ATOL, f"{what} over {n} shards "
+                          f"within {KERNEL_ATOL} of unsplit: {err:.3g}")
+                bitwise[f"{what} /{n}"] = same
+                if not short:
+                    times.append(median_ms(
+                        lambda f=split, a=a, kw=kw, m=mesh: f(*a, **kw,
+                                                              mesh=m)))
+            if times:
+                print(f"agg split: {what}: unsplit {times[0]:.4f} ms, "
+                      + ", ".join(f"{n} shards {ms:.4f} ms" for n, ms in
+                                  zip(meshes, times[1:])) + f" [{card}]",
+                      flush=True)
+
+    sink = MaskedF32Sink(t, device=device)
+    for c in SILOS:
+        sink.fold(state["masked"][c])
+    sink_total = sink.finalize()
+    before = counts()
+    split_total = shard.sharded_masked_sum(
+        x3, torch.ones(len(SILOS), device=device), mesh=meshes[2])
+    delta = counts()["masked_sum"] - before["masked_sum"]
+    if device.type == "cuda":
+        check(delta == 2, f"the 2-shard K1 launches twice ({delta})")
+    tally["masked_sum"] += delta
+    check(torch.equal(split_total, sink_total),
+          "the 2-shard K1 over the masked buffers == MaskedF32Sink, bitwise")
+    print(f"agg split: shards {list(meshes)}; bitwise equal to the unsplit "
+          f"launch: {sum(bitwise.values())} of {len(bitwise)} "
+          f"(not: {[k for k, v in bitwise.items() if not v]}); the 2-shard "
+          f"K1 over the masked buffers == MaskedF32Sink, bitwise [{card}]",
+          flush=True)
+    return {k: v for k, v in tally.items() if v}
 
 
 # ---------------------------------------------------------------------------
@@ -1979,32 +2326,18 @@ def trace_phase(state, card: str):
     """One more train step, on the new global, under ``torch.profiler``:
     the card's busy time in it against the untraced median step time,
     i.e. how far the host holds the card back."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     step, opt, params, batch = (state[k] for k in
                                 ("step", "opt", "global", "batch"))
     opt_state = opt.init(params)
     step(params, opt_state, batch)                 # warm-up
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        _, traced_s = sync_seconds(step, params, opt_state, batch)
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    check(busy_ms > 0, "the profiler saw device time")
+    busy_ms, n_launch, top, traced_s = traced_busy(step, params, opt_state,
+                                                   batch)
     wall_ms = state["step_s"] * 1e3
-    top = sorted(kernels, key=lambda e: e.self_device_time_total,
-                 reverse=True)[:4]
     print(f"trace: train step device busy {busy_ms:.2f} ms in "
-          f"{sum(e.count for e in kernels)} kernel launches; untraced step "
+          f"{n_launch} kernel launches; untraced step "
           f"median {wall_ms:.2f} ms -> device idle share "
           f"{1 - busy_ms / wall_ms:.3f}; traced step {traced_s * 1e3:.2f} "
-          f"ms; top: " + "; ".join(
-              f"{e.key[:48]} {e.self_device_time_total / 1e3:.2f} ms"
-              for e in top) + f" [{card}]", flush=True)
+          f"ms; top: {top} [{card}]", flush=True)
 
 
 def main() -> int:
@@ -2077,6 +2410,7 @@ def main() -> int:
 
     # the main path: slice 1's fp32 secure round and repair, slice 5's FL
     # run through the control plane, slice 6's fleet and async runs, slice
+    # 8's training launcher (pod and sim) and the T split, slice
     # 2's compressed planes on the round's trained silos, then slice 3's
     # serve run; the counts are set to 0 just before each and read just
     # after it
@@ -2103,6 +2437,28 @@ def main() -> int:
     print("async path: no repo kernel, as in the reference (the fold is "
           "plain PyTorch on the card)", flush=True)
     reset_launches()
+    run_phase("train pod", peaks, card, train_pod_phase, device, card)
+    pod = read_path("train pod", ())
+    check(not any(pod.values()),
+          "the train pod path launches no kernel (its step runs "
+          "impl='xla' and its FedAvg is plain PyTorch, as the reference's)")
+    print("train pod path: no repo kernel, as in the reference (the step "
+          "runs impl='xla', the FedAvg is plain PyTorch on the card)",
+          flush=True)
+    reset_launches()
+    run_phase("train sim", peaks, card, train_sim_phase, state, device,
+              card)
+    sim = read_path("train sim", ("masked_sum",))
+    reset_launches()
+    split = run_phase("agg split", peaks, card, agg_split_phase, state,
+                      device, card)
+    split = {k: split.get(k, 0) for k in fp32}
+    for k in ("masked_sum", "masked_sum_corrected", "dequant_reduce",
+              "masked_dequant_reduce", "masked_dequant_reduce_corrected"):
+        check(split[k] > 0, f"{k} launched on the agg split path")
+    print(f"agg split path: launches {split} (the split calls only)",
+          flush=True)
+    reset_launches()
     for what, fn in (("int8 round", int8_phase),
                      ("secure int8 round", secure_int8_phase),
                      ("integer repair", int_repair_phase),
@@ -2127,8 +2483,9 @@ def main() -> int:
           f"one prefill launches K6 and K7 once a layer ({n_layers})")
     check(served["flash_attention_f32"] == 0,
           "the bf16 serve path runs K6's tensor-core kernel only")
-    launches = {k: fp32[k] + fl[k] + fleet[k] + asynchronous[k]
-                + compressed[k] + served[k] for k in fp32}
+    launches = {k: fp32[k] + fl[k] + fleet[k] + asynchronous[k] + pod[k]
+                + sim[k] + split[k] + compressed[k] + served[k]
+                for k in fp32}
     for k in kernels:
         check(launches[k["name"]] > 0, f"{k['name']} launched on the path")
     print(f"main path: launches {launches}; peak device memory "

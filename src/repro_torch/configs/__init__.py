@@ -3,6 +3,8 @@ reference's eleven, ``repro.configs``)."""
 from repro_torch.configs.base import (FrontendConfig, MLAConfig,  # noqa: F401
                                       ModelConfig, MoEConfig, SSMConfig,
                                       get_config, list_configs, register)
+from repro_torch.configs.shapes import (SHAPES, InputShape,  # noqa: F401
+                                        get_shape, shape_applicable)
 
 # side-effect registration: one module per architecture
 from repro_torch.configs import mamba2_780m            # noqa: F401

@@ -31,8 +31,12 @@ Telemetry: with a ``telemetry`` bundle each flush and each decode runs
 under a ``kernel_span`` (``<kernel>_stream``) and waits for the card, as
 the reference blocks on its result, so the span holds the kernel's time;
 each flush bumps ``agg.stream_fold_batches`` and folds its working-set
-high-water mark into the ``agg.accumulator_peak_bytes`` gauge. Not
-ported: the mesh (T split across devices, ``sharding/agg.py``).
+high-water mark into the ``agg.accumulator_peak_bytes`` gauge.
+
+The reference's ``mesh`` argument is not taken here: the sinks always
+run the unsplit kernels on their own device. The T split itself is
+ported as standalone ops (``repro_torch.sharding.agg``); it joins the
+sinks once a run across several cards shows it faster than one launch.
 """
 from __future__ import annotations
 

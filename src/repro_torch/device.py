@@ -20,3 +20,10 @@ def resolve(device=DEFAULT_DEVICE) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def synchronize(device: torch.device):
+    """Wait for the card (a no-op on the CPU): host-clock timings of work
+    on ``device`` end here."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)

@@ -19,7 +19,7 @@ import functools
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.secure_agg.kernel import _check, _stream
+from repro_torch.kernels.secure_agg.kernel import _call
 
 _P = ctypes.c_void_p
 
@@ -42,9 +42,9 @@ def dequant_reduce_flat(q: torch.Tensor, scales: torch.Tensor,
     """K3: out = sum_i w_i * q_i * expand(scales_i). q (N, T) int8,
     scales (N, T/1024), w (N,), out (T,) f32 CUDA."""
     n, t = q.shape
-    _check(_lib().dequant_reduce_f32(
-        q.data_ptr(), scales.data_ptr(), w.data_ptr(), out.data_ptr(), n, t,
-        q.device.index, _stream(q.device)), "dequant_reduce")
+    _call(_lib().dequant_reduce_f32, "dequant_reduce", q.device,
+          q.data_ptr(), scales.data_ptr(), w.data_ptr(), out.data_ptr(), n,
+          t)
     return out
 
 
@@ -54,8 +54,8 @@ def masked_dequant_reduce_flat(z: torch.Tensor, scales: torch.Tensor,
     """K4: out = expand(scales) * center((sum_i z_i - sum_i corr_i) mod
     2**modulus_bits). z, corr (N, T) 32-bit, scales (T/1024,), out (T,)."""
     n, t = z.shape
-    _check(_lib().masked_dequant_reduce_u32(
-        z.data_ptr(), None if corr is None else corr.data_ptr(),
-        scales.data_ptr(), out.data_ptr(), n, t, int(modulus_bits),
-        z.device.index, _stream(z.device)), "masked_dequant_reduce")
+    _call(_lib().masked_dequant_reduce_u32, "masked_dequant_reduce",
+          z.device, z.data_ptr(),
+          None if corr is None else corr.data_ptr(), scales.data_ptr(),
+          out.data_ptr(), n, t, int(modulus_bits))
     return out

@@ -21,7 +21,7 @@ import functools
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.secure_agg.kernel import _check, _stream
+from repro_torch.kernels.secure_agg.kernel import _call
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -70,9 +70,8 @@ def flash_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Sk, Hkv = k.shape[1], k.shape[2]
     strides = (ctypes.c_longlong * 12)(
         *[s for t in (q, k, v, out) for s in bsh_strides(t)])
-    _check(getattr(lib or _lib(), ENTRY[q.dtype])(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        B, H, Hkv, Sq, Sk, D, strides, float(scale),
-        int(causal), int(window), float(softcap), q.device.index,
-        _stream(q.device)), "flash_attention")
+    _call(getattr(lib or _lib(), ENTRY[q.dtype]), "flash_attention",
+          q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+          out.data_ptr(), B, H, Hkv, Sq, Sk, D, strides, float(scale),
+          int(causal), int(window), float(softcap))
     return out

@@ -49,13 +49,20 @@ def _check(err: int, what: str):
         raise RuntimeError(f"{what} launch failed: cudaError {err}")
 
 
+def _call(fn, what: str, dev: torch.device, *args):
+    """``fn(*args, device index, stream)`` with ``dev`` current. The
+    sources make the launch's device current and leave it so; the
+    context puts the caller's current device back."""
+    with torch.cuda.device(dev):
+        _check(fn(*args, dev.index, _stream(dev)), what)
+
+
 def masked_sum_flat(x: torch.Tensor, w: torch.Tensor,
                     out: torch.Tensor) -> torch.Tensor:
     """K1: out = sum_i w_i * x_i. x (N, T), w (N,), out (T,) fp32 CUDA."""
     n, t = x.shape
-    _check(_lib().masked_sum_f32(x.data_ptr(), w.data_ptr(), out.data_ptr(),
-                                 n, t, x.device.index, _stream(x.device)),
-           "masked_sum")
+    _call(_lib().masked_sum_f32, "masked_sum", x.device, x.data_ptr(),
+          w.data_ptr(), out.data_ptr(), n, t)
     return out
 
 
@@ -64,9 +71,9 @@ def masked_sum_corrected_flat(x: torch.Tensor, c: torch.Tensor,
                               out: torch.Tensor) -> torch.Tensor:
     """K2: out = sum_i w_i * (x_i - c_i). x, c (N, T), w (N,), out (T,)."""
     n, t = x.shape
-    _check(_lib().masked_sum_corrected_f32(
-        x.data_ptr(), c.data_ptr(), w.data_ptr(), out.data_ptr(), n, t,
-        x.device.index, _stream(x.device)), "masked_sum_corrected")
+    _call(_lib().masked_sum_corrected_f32, "masked_sum_corrected",
+          x.device, x.data_ptr(), c.data_ptr(), w.data_ptr(),
+          out.data_ptr(), n, t)
     return out
 
 
@@ -75,8 +82,6 @@ def secure_agg_combine_flat(q: torch.Tensor, ws: torch.Tensor,
     """K5: out = sum_i ws_i * float(q_i). q (N, T) int8, ws (N,) f32 (the
     weights times the per-client scales), out (T,) f32."""
     n, t = q.shape
-    _check(_lib().secure_agg_combine_f32(q.data_ptr(), ws.data_ptr(),
-                                         out.data_ptr(), n, t,
-                                         q.device.index, _stream(q.device)),
-           "secure_agg_combine")
+    _call(_lib().secure_agg_combine_f32, "secure_agg_combine", q.device,
+          q.data_ptr(), ws.data_ptr(), out.data_ptr(), n, t)
     return out

@@ -19,7 +19,7 @@ import functools
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.secure_agg.kernel import _check, _stream
+from repro_torch.kernels.secure_agg.kernel import _call
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -83,11 +83,10 @@ def ssd_scan_chunked(x, dt, A, B, C, y, state, *, chunk: int,
     strides = (ctypes.c_longlong * 10)(
         x.stride(0), x.stride(1), x.stride(2), dt.stride(0), dt.stride(1),
         dt.stride(2), B.stride(0), B.stride(1), C.stride(0), C.stride(1))
-    _check((lib or _lib()).ssd_scan_fwd(
-        x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
-        C.data_ptr(), y.data_ptr(), state.data_ptr(),
-        *(scratch[k].data_ptr()
-          for k in ("cbt", "L", "states", "entering")),
-        DTYPES[x.dtype], b, S, H, P, N, int(chunk), strides, x.device.index,
-        _stream(x.device)), "ssd_scan")
+    _call((lib or _lib()).ssd_scan_fwd, "ssd_scan", x.device,
+          x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
+          C.data_ptr(), y.data_ptr(), state.data_ptr(),
+          *(scratch[k].data_ptr()
+            for k in ("cbt", "L", "states", "entering")),
+          DTYPES[x.dtype], b, S, H, P, N, int(chunk), strides)
     return y, state

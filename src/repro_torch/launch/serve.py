@@ -34,15 +34,10 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_config
-from repro_torch.device import DEFAULT_DEVICE, resolve
+from repro_torch.device import DEFAULT_DEVICE, resolve, synchronize
 from repro_torch.models import build_model
 
 MIN_TOKENS = 8      # a vision prompt keeps at least this many tokens
-
-
-def _sync(device: torch.device):
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
 
 
 def make_batch(cfg, batch: int, prompt_len: int, seed: int,
@@ -118,10 +113,10 @@ def generate(model, params: dict, batch: dict, gen: int) -> dict:
     n0 = stream_len(model, batch)
     cache_len = model.cache_len_for(n0 + gen)
     dev = model.device
-    _sync(dev)
+    synchronize(dev)
     t0 = time.perf_counter()
     logits, cache = model.prefill(params, batch, cache_len)
-    _sync(dev)
+    synchronize(dev)
     t_prefill = time.perf_counter() - t0
     first = logits
     tok = torch.argmax(logits, -1)                            # (B,1)
@@ -132,7 +127,7 @@ def generate(model, params: dict, batch: dict, gen: int) -> dict:
         logits, cache = model.decode_step(params, cache, tok, pos)
         tok = torch.argmax(logits, -1)
         out.append(tok)
-    _sync(dev)
+    synchronize(dev)
     t_decode = time.perf_counter() - t1
     return {"tokens": torch.cat(out, 1), "prefill_s": t_prefill,
             "decode_s": t_decode, "first_logits": first,

@@ -12,6 +12,9 @@ device, and exposes:
   * ``decode_step(params, cache, tok, pos)`` — one-token decode; updates
     the cache in place and returns it
   * ``init_cache(batch, cache_len)``, ``cache_len_for(seq_len)``
+  * ``abstract_params()``, ``abstract_cache(batch, cache_len)`` and
+    ``input_specs(shape)`` — the same trees as tensors on the ``meta``
+    device (torch's ``ShapeDtypeStruct``): shapes and dtypes, no storage
 
 ``impl="xla"`` runs the plain attention and scan; ``impl="kernel"`` runs
 K6 flash attention and K7 the SSD scan over full sequences (prefill, the
@@ -26,13 +29,17 @@ bos token at decoder position 0.
 """
 from __future__ import annotations
 
+import copy
 import math
 
 import torch
 import torch.nn.functional as F
+from torch.overrides import TorchFunctionMode
+from torch.utils._device import _device_constructors
 
 from repro_torch import tree as _tree
 from repro_torch.configs.base import BLOCK_SSM, ModelConfig
+from repro_torch.configs.shapes import InputShape
 from repro_torch.device import DEFAULT_DEVICE, resolve
 from repro_torch.models import encdec, transformer
 from repro_torch.models.attention import IMPLS
@@ -47,6 +54,24 @@ MAX_FULL_CACHE = 32_768
 
 def _dtype(name: str) -> torch.dtype:
     return getattr(torch, name)
+
+
+_META = torch.device("meta")
+
+
+class _OnMeta(TorchFunctionMode):
+    """Every tensor factory allocates on the ``meta`` device and every
+    generator is dropped: ``init`` and ``init_cache`` run as they are and
+    build their trees of shapes and dtypes without storage (the role of
+    the reference's ``jax.eval_shape``)."""
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        kwargs = dict(kwargs or {})
+        if func in _device_constructors():
+            kwargs["device"] = _META
+        kwargs.pop("generator", None)
+        return func(*args, **kwargs)
+
 
 
 class Model:
@@ -94,6 +119,18 @@ class Model:
             params["meta_tokens"] = embed_init(
                 gen, (cfg.n_meta_tokens, cfg.d_model))
         return params
+
+    def _on_cpu(self) -> "Model":
+        """This model with its device set to the CPU (for the meta
+        builds, which must not need the card)."""
+        m = copy.copy(self)
+        m.device = torch.device("cpu")
+        return m
+
+    def abstract_params(self) -> dict:
+        """``init``'s tree as meta tensors: the fp32 masters' shapes."""
+        with _OnMeta():
+            return self._on_cpu().init(torch.Generator())
 
     def cast(self, params: dict) -> dict:
         dt = _dtype(self.cfg.dtype)
@@ -248,6 +285,11 @@ class Model:
                                             _dtype(cfg.dtype), cfg.n_layers,
                                             self.device)
 
+    def abstract_cache(self, batch: int, cache_len: int) -> dict:
+        """``init_cache``'s tree as meta tensors."""
+        with _OnMeta():
+            return self._on_cpu().init_cache(batch, cache_len)
+
     def _logits(self, params, hidden_last):
         logits = hidden_last @ self._unembed_matrix(params).to(
             hidden_last.dtype)
@@ -280,6 +322,33 @@ class Model:
         Returns (logits (B,1,V), cache); the cache is updated in place."""
         params = self.cast(params)
         return self._decode_cast(params, cache, token, pos)
+
+    # ------------------------------------------------------------------
+    # Dry-run input specs (no allocation)
+    # ------------------------------------------------------------------
+    def input_specs(self, shape: InputShape) -> dict:
+        """The batch of ``shape`` as meta tensors, in the reference's
+        layouts and dtypes (int32 tokens, frontend features in the compute
+        dtype); a decode shape gives ``{"cache", "token", "pos"}``."""
+        cfg = self.cfg
+        B, S = shape.global_batch, shape.seq_len
+        i32, dt = torch.int32, _dtype(cfg.dtype)
+
+        def sds(shp, dtype):
+            return torch.empty(shp, dtype=dtype, device=_META)
+        if shape.mode in ("train", "prefill"):
+            if cfg.is_encoder_decoder:
+                return {"frames": sds((B, S, cfg.frontend.d_frontend), dt),
+                        "tokens": sds((B, S), i32)}
+            if cfg.frontend is not None:
+                P = cfg.frontend.num_tokens
+                return {"patches": sds((B, P, cfg.frontend.d_frontend), dt),
+                        "tokens": sds((B, S - P), i32)}
+            return {"tokens": sds((B, S), i32)}
+        # decode: (cache, token, pos)
+        cache = self.abstract_cache(B, self.cache_len_for(S))
+        return {"cache": cache, "token": sds((B, 1), i32),
+                "pos": sds((B, 1), i32)}
 
 
 def build_model(name_or_cfg, *, impl: str = "xla",

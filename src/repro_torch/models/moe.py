@@ -23,8 +23,16 @@ and sum alike:
     tokens repeat run to run.
 The expert products are plain batched products (``torch.bmm``), as the
 reference leaves them to XLA outside any kernel.
+
+``REPRO_MOE_GROUPED=<G>`` (read at call time, as the reference reads it)
+switches to the group-local dispatch ``_moe_apply_grouped``: the tokens
+split into G groups (the data-parallel shards of a mesh) and each group
+fills its own capacity buffers, with the same three orders inside a
+group.
 """
 from __future__ import annotations
+
+import os
 
 import torch
 import torch.nn.functional as F
@@ -65,8 +73,22 @@ def capacity(cfg, n_tokens: int) -> int:
     return max(8, min(cap, n_tokens))
 
 
+def _sum_by_token(contrib: torch.Tensor, st: torch.Tensor, n: int,
+                  k: int) -> torch.Tensor:
+    """(n*k, D) contributions of the sorted assignments -> (n, D): each
+    token's k contributions added in ascending expert order."""
+    by_token = contrib[torch.argsort(st, stable=True)].reshape(n, k, -1)
+    out = by_token[:, 0]
+    for j in range(1, k):
+        out = out + by_token[:, j]
+    return out
+
+
 def moe_apply(p: dict, cfg, x: torch.Tensor):
     """x: (B,S,D) -> (out (B,S,D), aux_loss)."""
+    G = int(os.environ.get("REPRO_MOE_GROUPED", "1"))
+    if G > 1:
+        return _moe_apply_grouped(p, cfg, x, G)
     m = cfg.moe
     B, S, D = x.shape
     E, K = m.num_experts, m.top_k
@@ -103,8 +125,59 @@ def moe_apply(p: dict, cfg, x: torch.Tensor):
         keep[:, None], y_flat[torch.clamp(slot, max=E * cap - 1)]
         * sw[:, None].to(dt), torch.zeros((), dtype=dt, device=dev))
     # each token's K contributions, in ascending expert order
-    by_token = contrib[torch.argsort(st, stable=True)].reshape(T, K, D)
-    out = by_token[:, 0]
-    for k in range(1, K):
-        out = out + by_token[:, k]
+    out = _sum_by_token(contrib, st, T, K)
+    return out.reshape(B, S, D), aux * m.router_aux_weight
+
+
+def _moe_apply_grouped(p: dict, cfg, x: torch.Tensor, G: int):
+    """Group-local dispatch: (B,S,D) -> G groups of T/G tokens, each
+    filling (E, C, D) buffers from its own tokens, with its own capacity
+    ``max(8, min(int(cf * Tg * K / E), Tg))``. The aux loss is the global
+    one (its means run over every group's tokens). The reference's
+    sharding constraints on the data and model axes are not taken: they
+    place nothing on one card."""
+    m = cfg.moe
+    B, S, D = x.shape
+    E, K = m.num_experts, m.top_k
+    T = B * S
+    if T % G:
+        raise ValueError(f"{G} token groups do not divide {T} tokens")
+    Tg = T // G
+    dt, dev = x.dtype, x.device
+    xg = x.reshape(G, Tg, D)
+
+    logits = xg @ p["router"].to(dt)                     # (G,Tg,E)
+    w, idx, aux = router_topk(logits.reshape(T, E), K)   # (T,K)
+
+    cap = max(8, min(int(m.capacity_factor * Tg * K / E), Tg))
+    flat_e = idx.reshape(G, Tg * K)
+    flat_t = torch.arange(Tg, device=dev).repeat_interleave(K).expand(
+        G, Tg * K)
+    flat_w = w.reshape(G, Tg * K)
+    order = torch.argsort(flat_e, dim=1, stable=True)
+    se = torch.gather(flat_e, 1, order)
+    st = torch.gather(flat_t, 1, order)
+    sw = torch.gather(flat_w, 1, order)
+    arange_e = torch.arange(E, device=dev).expand(G, E).contiguous()
+    group_start = torch.searchsorted(se, arange_e)       # (G,E)
+    pos = torch.arange(Tg * K, device=dev)[None] - torch.gather(
+        group_start, 1, se)
+    keep = pos < cap
+    slot = torch.where(keep, se * cap + pos, E * cap)
+
+    g_idx = torch.arange(G, device=dev)[:, None]
+    buf = torch.zeros((G, E * cap + 1, D), dtype=dt, device=dev)
+    buf[g_idx, slot] = xg[g_idx, st]
+    buf = buf[:, :-1].reshape(G, E, cap, D)
+
+    h = torch.einsum("gecd,edf->gecf", buf, p["w_gate"].to(dt))
+    u = torch.einsum("gecd,edf->gecf", buf, p["w_up"].to(dt))
+    y = torch.einsum("gecf,efd->gecd", F.silu(h) * u, p["w_down"].to(dt))
+
+    y_flat = y.reshape(G, E * cap, D)
+    gathered = y_flat[g_idx, torch.clamp(slot, max=E * cap - 1)]
+    contrib = torch.where(keep[..., None], gathered * sw[..., None].to(dt),
+                          torch.zeros((), dtype=dt, device=dev))
+    out = torch.stack([_sum_by_token(contrib[g], st[g], Tg, K)
+                       for g in range(G)])
     return out.reshape(B, S, D), aux * m.router_aux_weight

@@ -1,1 +1,4 @@
-from repro_torch.training.steps import make_train_step  # noqa: F401
+from repro_torch.training.steps import (fedavg_pod_params,  # noqa: F401
+                                        make_fedavg_pod_step,
+                                        make_multipod_train_step,
+                                        make_train_step)
