@@ -127,6 +127,13 @@ Phases (every failed check exits non-zero):
       within 1e-6 of the plain mean.
 7. Trace: one more train step under ``torch.profiler``; prints the card's
    busy time against the untraced step time (the device idle share).
+7b. ``threefry``: phase 4's three packed buffers masked with
+   ``prg="threefry"`` (the reference's ``jax.random.bits`` stream, T =
+   116,411,136) and folded through ``MaskedF32Sink`` (K1): the mean
+   within 1e-6 of the plain mean; the card's bits for the first and the
+   last 2**20 counters under each of ``windco``'s pair keys bitwise equal
+   to the CPU's. Prints the ms a pair of the threefry and the fast
+   stream.
 8. Serving ``hymba-1.5b`` at full width (32 layers, d_model 1600, 25
    heads over 5 kv heads, 50 SSD heads, 128 meta tokens, bf16, random
    init from a seed) through ``repro_torch.launch.serve``: batch 4, a
@@ -164,6 +171,22 @@ Phases (every failed check exits non-zero):
    gemma2-9b, gemma3-4b and minicpm3-4b are cut to 14, 6 and 31 layers
    (printed), and gemma3-4b's second check runs on its first 8191
    tokens.
+10. ``dryrun``: ``repro_torch.launch.dryrun`` on meta tensors at the
+   shapes the card timed: phase 4's train step (8 x 256), the ``train
+   pod`` step (two of it), phase 8's hymba-1.5b prefill and the prefill
+   of each ``ZOO`` architecture. Each prints its FLOPs, traffic bytes,
+   compute and memory terms over the H100 SXM datasheet figures, the
+   bound, the measured median (a prefill's of ``PREFILL_REPS``) and the
+   share (bound / measured). Gates: the train step's meta FLOP count
+   equals ``FlopCounterMode``'s count of the same step on the card
+   (after phase 7b), and neither the train step nor the pod step is
+   faster than its bound. The prefills are not gated: the dry run counts
+   the ``impl="xla"`` program, and the timed prefills ran
+   ``impl="kernel"``, whose K6 skips the blocks a window or the causal
+   mask hides, so their share is the plain program's bound over the
+   kernel path's time, not a lower bound of it. The live-bytes
+   tracker's predicted peak of the train step is printed beside the
+   card's ``max_memory_allocated`` rise.
 
 Phase 3 also holds K3 ``dequant_reduce``, K4 ``masked_dequant_reduce``
 (with and without corrections) and K5 ``secure_agg_combine`` against
@@ -192,13 +215,15 @@ must have run); 5h reads the counters around each checked split call and
 leaves its timing calls out (the ``agg split`` path: K1, K2, K3 and K4
 in both variants, once a shard);
 reset again before phase 6a and read after 6e (K3, K4
-in both variants, K5 and K1 must have run), and reset before phase 8's
+in both variants, K5 and K1 must have run), reset before phase 7b and
+read after it (the ``threefry`` path: K1 must have run), and reset
+before phase 8's
 timed serve run and read after it (K6's tensor-core kernel and K7 once a
 layer, K6's f32 kernel never), and around each timed generate of phase
 9 (the ``zoo`` path, summed); the kernels line gives the sum of the
-ten paths. Each phase prints its seconds and peak device memory. The
-line before the last is the ``kernels`` JSON record; the last line is the
-device record.
+eleven paths; phase 10 launches no kernel (meta tensors). Each phase
+prints its seconds and peak device memory. The line before the last is
+the ``kernels`` JSON record; the last line is the device record.
 """
 from __future__ import annotations
 
@@ -285,6 +310,7 @@ SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 1920, 32
 # layers amplify, past 2e-2; there the kernel path may drift at most
 # SERVE_BF16_RATIO times as far as the plain path does
 SERVE_F32_TOL = 1e-3
+PREFILL_REPS = 5            # timed prefills a median (phase 10 reads it)
 SERVE_BF16_RATIO = 1.5
 
 # HBM rate (bytes/s) by card, from the published data sheets
@@ -1419,7 +1445,7 @@ def train_pod_phase(device, card: str, reduced: bool = False):
     ``make_train_step`` alone on its slice and batch; the int8 FedAvg of
     the last trained stack within each leaf's largest per-silo scale +
     1e-6 of the f32 mean, both silos bitwise equal. ``reduced`` runs the
-    2-layer variant (a CPU rehearsal)."""
+    2-layer variant (a CPU rehearsal). Returns the median pod-step ms."""
     import numpy as np
     import torch
     from repro_torch import tree as _tree
@@ -1522,6 +1548,7 @@ def train_pod_phase(device, card: str, reduced: bool = False):
           f"kernel launches; untraced step median {step_ms:.2f} ms -> "
           f"device idle share {1 - busy_ms / step_ms:.3f}; traced step "
           f"{traced_s * 1e3:.2f} ms; top: {top} [{card}]", flush=True)
+    return step_ms
 
 
 def train_sim_phase(state, device, card: str, reduced: bool = False):
@@ -1893,6 +1920,66 @@ def aggregate_phase(state, device, card: str):
           f"{ROUND_ATOL}); {s:.4f} s [{card}]", flush=True)
 
 
+THREEFRY_EDGE = 1 << 20    # counters held bitwise, card vs CPU, at each end
+
+
+def threefry_phase(state, device, card: str):
+    """7b: ``prg="threefry"`` (the reference's ``jax.random.bits`` stream)
+    at full width: the three silos' packed buffers of phase 4 masked with
+    it, folded through ``MaskedF32Sink`` (K1); the mean must equal the
+    plain mean within phase 4's tolerance. The card's bits for the first
+    and the last 2**20 counters of each of ``windco``'s pair keys must
+    equal the CPU's bitwise. Prints the ms a pair of both streams."""
+    import torch
+    from repro_torch.core import secure_agg as sa
+    from repro_torch.core.streaming import MaskedF32Sink
+
+    t = state["T"]
+    cohort = sorted(SILOS)
+    masked, mask_s = {}, []
+    for cid in SILOS:
+        masked[cid], s = sync_seconds(sa.mask_packed, state["plain"][cid],
+                                      cid, cohort, SECRET, prg="threefry",
+                                      device=device)
+        mask_s.append(s)
+
+    def server():
+        sink = MaskedF32Sink(t, device=device)
+        for cid in SILOS:
+            sink.fold(masked[cid], 1.0)
+        return sink.finalize()
+    total, s_fold = sync_seconds(server)
+    plain_mean = torch.stack([state["plain"][c] for c in SILOS]).mean(0)
+    err = float((total / float(len(SILOS)) - plain_mean).abs().max())
+    check(err <= ROUND_ATOL,
+          f"threefry masks cancel: aggregate vs plain mean {err:.3g}")
+    del masked, total
+
+    keys, signs = sa.pair_keys(SILOS[0], cohort, SECRET)
+    edge = min(THREEFRY_EDGE, t)
+    for k0, k1 in keys.tolist():
+        for lo in (0, t - edge):
+            idx = torch.arange(lo, lo + edge, dtype=torch.int64)
+            check(torch.equal(sa.threefry_bits(idx.to(device), k0, k1).cpu(),
+                              sa.threefry_bits(idx, k0, k1)),
+                  f"threefry bits of counters [{lo}, {lo + edge}) under key "
+                  f"({k0}, {k1}): card == CPU, bitwise")
+    buf = state["plain"][SILOS[0]]
+    pair_ms = {prg: median_ms(lambda prg=prg: sa._apply_masks(
+        buf, keys[:1], signs[:1], sa.DEFAULT_SCALE, prg=prg),
+        reps=5, inner=1) for prg in ("fast", "threefry")}
+    print(f"threefry: T={t}, {len(SILOS)} silos masked with prg='threefry' "
+          f"({statistics.median(mask_s):.4f} s a silo), folded through "
+          f"MaskedF32Sink in {s_fold:.4f} s; mean vs plain mean max err "
+          f"{err:.3g} (atol {ROUND_ATOL}); bits bitwise equal to the CPU's "
+          f"at counters [0, {edge}) and [{t - edge}, {t}) under "
+          f"{len(keys)} pair keys [{card}]", flush=True)
+    print(f"threefry: a pair over T={t}: threefry {pair_ms['threefry']:.2f} "
+          f"ms, fast {pair_ms['fast']:.2f} ms ("
+          f"{pair_ms['threefry'] / pair_ms['fast']:.2f}x) [{card}]",
+          flush=True)
+
+
 # ---------------------------------------------------------------------------
 # phase 8: serving hymba-1.5b at full width (prefill through K6 and K7)
 # ---------------------------------------------------------------------------
@@ -1939,6 +2026,20 @@ def serve_phase(st, card: str):
               and bool(torch.isfinite(res[key]).all()),
               f"{key} finite, (B, 1, vocab)")
     st["res"] = res
+
+
+def prefill_median_ms(model, params, batch, gen: int) -> float:
+    """The median ms of ``PREFILL_REPS`` prefills of ``batch`` into the
+    cache ``serve.generate`` gives a run of ``gen`` tokens (CUDA events,
+    after 3 warm-up prefills): the prefill time phase 10 reads. Called
+    after a path's launches were read, so its launches count nowhere."""
+    import torch
+    from repro_torch.launch import serve
+
+    cache_len = model.cache_len_for(serve.stream_len(model, batch) + gen)
+    with torch.no_grad():
+        return median_ms(lambda: model.prefill(params, batch, cache_len),
+                         reps=PREFILL_REPS, inner=1)
 
 
 def serve_checks(model, params, batch, res, layers, check_tokens, device,
@@ -2227,7 +2328,8 @@ def zoo_arch(arch: str, batch_size: int, prompt: int, layers, check_tokens,
     init from a seed, bf16 at full width; a warm-up ``generate`` of 2
     tokens, then the timed one of ``ZOO_GEN`` with the launch counts set
     to 0 just before it and read just after), then ``serve_checks``.
-    Returns the timed run's launches and the arch's peak GiB."""
+    Returns the timed run's launches, the arch's peak GiB and the
+    prefill's median ms (``prefill_median_ms``)."""
     import torch
     from repro_torch import tree
     from repro_torch.launch import serve
@@ -2258,12 +2360,14 @@ def zoo_arch(arch: str, batch_size: int, prompt: int, layers, check_tokens,
         res = serve.generate(model, params, batch, ZOO_GEN)
     counts = {k: v for c in counters for k, v in c.LAUNCHES.items()}
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    prefill_ms = prefill_median_ms(model, params, batch, ZOO_GEN)
     steps = ZOO_GEN - 1
     print(f"zoo {arch}: prefill {res['prefill_s'] * 1e3:.1f} ms "
           f"({batch_size * prompt / res['prefill_s']:.0f} prompt tok/s), "
           f"decode {res['decode_s'] * 1e3 / steps:.2f} ms a token "
           f"({batch_size * steps / res['decode_s']:.1f} tok/s), serve peak "
-          f"{peak:.2f} GiB; launches {counts} [{card}]", flush=True)
+          f"{peak:.2f} GiB; launches {counts}; prefill median "
+          f"{prefill_ms:.2f} ms of {PREFILL_REPS} [{card}]", flush=True)
     out = res["tokens"]
     check(out.shape == (batch_size, ZOO_GEN), f"{arch} tokens {out.shape}")
     check(bool(((out >= 0) & (out < cfg.vocab)).all()),
@@ -2279,16 +2383,19 @@ def zoo_arch(arch: str, batch_size: int, prompt: int, layers, check_tokens,
     serve_checks(model, params, batch, res, layers or cfg.n_layers,
                  check_tokens, device, card)
     return counts, max(init_peak, peak,
-                       torch.cuda.max_memory_allocated() / 2 ** 30)
+                       torch.cuda.max_memory_allocated() / 2 ** 30), \
+        prefill_ms
 
 
 def zoo_phase(device, card: str, counters) -> dict:
     """Every architecture of the zoo but hymba-1.5b (phase 8) and
     fedforecast-100m (phases 4-7): ``ZOO`` at full width, ``ZOO_REDUCED``
     at ``reduced()``. Returns the launches of their timed runs, summed,
-    and the phase's peak GiB (each architecture resets the peak)."""
+    the phase's peak GiB (each architecture resets the peak) and each
+    architecture's prefill median ms."""
     import torch
     total: dict = {}
+    prefill_ms: dict = {}
     top = 0.0
     todo = [(*row, False) for row in ZOO] + [
         (a, 2, ZOO_REDUCED_PROMPT, None, None, True) for a in ZOO_REDUCED]
@@ -2298,16 +2405,112 @@ def zoo_phase(device, card: str, counters) -> dict:
                   "bf16 at full width, over one 80 GB card: served "
                   f"reduced() (f32) [{card}]", flush=True)
         t0 = time.perf_counter()
-        counts, peak = zoo_arch(arch, batch_size, prompt, layers,
-                                check_tokens, reduced, device, card,
-                                counters)
+        counts, peak, prefill_ms[arch] = zoo_arch(
+            arch, batch_size, prompt, layers, check_tokens, reduced, device,
+            card, counters)
         top = max(top, peak)
         torch.cuda.empty_cache()
         print(f"zoo {arch}: {time.perf_counter() - t0:.2f} s [{card}]",
               flush=True)
         for k, v in counts.items():
             total[k] = total.get(k, 0) + v
-    return total, top
+    return total, top, prefill_ms
+
+
+# ---------------------------------------------------------------------------
+# phase 10: the dry run, held against the steps the card timed
+# ---------------------------------------------------------------------------
+def train_card_count(state) -> dict:
+    """Phase 4's train step once more on the card, under the dry run's
+    counters (``dryrun.count``: ``FlopCounterMode`` and the live-bytes
+    tracker, here on the card's tensors), with the card's
+    ``max_memory_allocated`` rise over the step; and the step's median
+    ms of phase 4. Read by phase 10."""
+    import torch
+    from repro_torch.launch import dryrun
+
+    step, opt, params, batch = (state[k] for k in
+                                ("step", "opt", "global", "batch"))
+    opt_state = opt.init(params)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = dryrun.count(step, (params, opt_state, batch))
+    torch.cuda.synchronize()
+    out["rise"] = torch.cuda.max_memory_allocated() - base
+    out["ms"] = state["step_s"] * 1e3
+    return out
+
+
+def dryrun_phase(timed: dict, card: str):
+    """10: ``repro_torch.launch.dryrun`` on meta tensors at the shape of
+    each step the card timed (phase 4's train step, the ``train pod``
+    step as two of it, phase 8's hymba-1.5b prefill, the prefills of
+    ``ZOO``): FLOPs, traffic bytes, the compute and memory terms over the
+    H100 SXM datasheet figures, the bound, the measured median and the
+    share (bound / measured). Gates: the train step's meta FLOP count
+    equals, as an integer, ``FlopCounterMode``'s count of the same step
+    on the card, and neither the train step nor the pod step, which run
+    the counted ``impl="xla"`` program, is faster than its bound. Prints
+    the tracker's predicted peak beside the card's
+    ``max_memory_allocated`` rise (reported, not gated). The prefills ran
+    ``impl="kernel"``, whose K6 skips the attention blocks that a window
+    or the causal mask hides and the plain path computes: their share
+    is the plain program's bound over the kernel path's time, printed as
+    such and not gated, since it is no lower bound of the timed work."""
+    from repro_torch.configs import InputShape
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.hlo_analysis import no_collectives, roofline_terms
+    from repro_torch.launch.mesh import H100
+
+    def shape(mode, batch, seq):
+        return InputShape(f"{mode}_{batch}x{seq}", seq, batch, mode)
+
+    on_card = timed["train card"]
+    train = dryrun.measure("fedforecast-100m",
+                           shape("train", BATCH_SIZE, SEQ_LEN))
+    meta_flops = int(train["per_device"]["flops"])
+    check(meta_flops == on_card["flops"],
+          f"train step: meta FLOPs {meta_flops} == the card's "
+          f"{on_card['flops']}")
+    meta_peak = train["per_device"]["temp_bytes"]
+    print(f"dryrun train step: {meta_flops} FLOPs on meta == "
+          f"{on_card['flops']} counted on the card; tracker peak "
+          f"{meta_peak} B on meta, {on_card['temp_bytes']} B on the card's "
+          f"tensors; the card's max_memory_allocated rise {on_card['rise']} "
+          f"B, {on_card['rise'] / meta_peak:.3f}x the prediction [{card}]",
+          flush=True)
+    # (name, record, steps, measured ms, gated: the timed program is the
+    # counted one)
+    rows = [("fedforecast-100m train step", train, 1, on_card["ms"], True),
+            ("fedforecast-100m train pod step (2 silo steps)", train, 2,
+             timed["pod ms"], True),
+            (f"{SERVE_ARCH} prefill", dryrun.measure(
+                SERVE_ARCH, shape("prefill", SERVE_BATCH, SERVE_PROMPT)), 1,
+             timed["serve prefill ms"], False)]
+    rows += [(f"{arch} prefill", dryrun.measure(
+        arch, shape("prefill", batch_size, prompt)), 1,
+        timed["zoo prefill ms"][arch], False)
+        for arch, batch_size, prompt, _, _ in ZOO]
+    for name, rec, n, ms, gated in rows:
+        flops = n * rec["per_device"]["flops"]
+        nbytes = n * rec["per_device"]["hbm_traffic_bytes"]
+        terms = roofline_terms(flops, nbytes, no_collectives(), H100,
+                               n_chips=1)
+        bound_ms = terms["step_time_lower_bound_s"] * 1e3
+        share = bound_ms / ms
+        what = ("share of bound" if gated else "plain (impl='xla') "
+                "program's bound over the kernel path's median, not a "
+                "lower bound, ungated")
+        print(f"dryrun {name}: {rec['shape']}, {flops:.6g} FLOPs, "
+              f"{nbytes:.6g} B; compute {terms['compute_s'] * 1e3:.3f} ms, memory "
+              f"{terms['memory_s'] * 1e3:.3f} ms -> bound {bound_ms:.3f} ms "
+              f"({terms['dominant']}); measured median {ms:.2f} ms; {what} "
+              f"{share:.4f}; meta run {rec['compile_s']:.2f} s [{card}]",
+              flush=True)
+        if gated:
+            check(share <= 1.0, f"{name}: measured {ms:.2f} ms is not "
+                  f"faster than its bound {bound_ms:.3f} ms")
 
 
 def run_phase(name: str, peaks: list, card: str, fn, *args):
@@ -2437,7 +2640,8 @@ def main() -> int:
     print("async path: no repo kernel, as in the reference (the fold is "
           "plain PyTorch on the card)", flush=True)
     reset_launches()
-    run_phase("train pod", peaks, card, train_pod_phase, device, card)
+    timed = {"pod ms": run_phase("train pod", peaks, card, train_pod_phase,
+                                 device, card)}
     pod = read_path("train pod", ())
     check(not any(pod.values()),
           "the train pod path launches no kernel (its step runs "
@@ -2470,6 +2674,10 @@ def main() -> int:
         "masked_dequant_reduce_corrected", "secure_agg_combine",
         "masked_sum"))
     run_phase("trace", peaks, card, trace_phase, state, card)
+    reset_launches()
+    run_phase("threefry", peaks, card, threefry_phase, state, device, card)
+    threefry = read_path("threefry", ("masked_sum",))
+    timed["train card"] = train_card_count(state)
     del state
     torch.cuda.empty_cache()
 
@@ -2478,14 +2686,17 @@ def main() -> int:
     reset_launches()
     run_phase("serve", peaks, card, serve_phase, serve_state, card)
     served = read_path("serve", ("flash_attention", "ssd_scan"))
+    timed["serve prefill ms"] = prefill_median_ms(
+        serve_state["model"], serve_state["params"], serve_state["batch"],
+        SERVE_GEN)
     n_layers = serve_state["model"].cfg.n_layers
     check(served["flash_attention"] == served["ssd_scan"] == n_layers,
           f"one prefill launches K6 and K7 once a layer ({n_layers})")
     check(served["flash_attention_f32"] == 0,
           "the bf16 serve path runs K6's tensor-core kernel only")
     launches = {k: fp32[k] + fl[k] + fleet[k] + asynchronous[k] + pod[k]
-                + sim[k] + split[k] + compressed[k] + served[k]
-                for k in fp32}
+                + sim[k] + split[k] + compressed[k] + threefry[k]
+                + served[k] for k in fp32}
     for k in kernels:
         check(launches[k["name"]] > 0, f"{k['name']} launched on the path")
     print(f"main path: launches {launches}; peak device memory "
@@ -2498,7 +2709,8 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # the phase resets the peak for each architecture: it reports its own
-    (zoo, zoo_peak), s = sync_seconds(zoo_phase, device, card, counters)
+    (zoo, zoo_peak, timed["zoo prefill ms"]), s = sync_seconds(
+        zoo_phase, device, card, counters)
     peaks.append(zoo_peak)
     print(f"phase zoo: {s:.2f} s, peak device memory {zoo_peak:.2f} GiB "
           f"[{card}]", flush=True)
@@ -2509,6 +2721,7 @@ def main() -> int:
     launches = {k: launches[k] + zoo.get(k, 0) for k in launches}
     print(f"main path with the zoo: launches {launches} [{card}]",
           flush=True)
+    run_phase("dryrun", peaks, card, dryrun_phase, timed, card)
 
     for k in kernels:
         k["launches"] = launches[k["name"]]

@@ -24,9 +24,14 @@ cohort:
   the reference's expression into (``_apply_masks``), so the masked
   buffers, not only the bit streams, are bitwise equal.
 
+``prg="threefry"`` is the reference's ``jax.random.bits(key, (T,),
+uint32)`` stream under jax's partitionable threefry (the default since
+jax 0.5): output i is ``b1 ^ b2`` of ``threefry2x32(key, (hi, lo))`` of
+the flat index i, written in the same int64-held uint32 arithmetic and
+bitwise equal to it (``threefry_bits``).
+
 The mask pass is plain PyTorch on either device; the reference computes
-it outside any Pallas kernel too. ``prg="threefry"`` (the reference's
-``jax.random`` stream) is not ported yet and raises.
+it outside any Pallas kernel too.
 
 Dropout repair: survivors re-derive their summed masks toward the dropped
 peers (``repair_correction``) and the server subtracts them in the combine
@@ -96,6 +101,39 @@ def _mix32(x: torch.Tensor) -> torch.Tensor:
     return x
 
 
+# threefry2x32, 20 rounds (Salmon et al., "Parallel random numbers: as
+# easy as 1, 2, 3", SC 2011), as jax.random computes it
+_THREEFRY_ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
+_THREEFRY_PARITY = 0x1BD11BDA
+
+
+def _rotl32(x: torch.Tensor, r: int) -> torch.Tensor:
+    return ((x << r) & _M32) | (x >> (32 - r))
+
+
+def _threefry2x32(k0: int, k1: int, x0: torch.Tensor, x1: torch.Tensor):
+    """threefry2x32 of the counter words ``(x0, x1)`` (int64 tensors
+    holding uint32 values) under the key words ``(k0, k1)``."""
+    ks = (k0, k1, k0 ^ k1 ^ _THREEFRY_PARITY)
+    x0 = (x0 + ks[0]) & _M32
+    x1 = (x1 + ks[1]) & _M32
+    for i in range(5):
+        for r in _THREEFRY_ROT[i % 2]:
+            x0 = (x0 + x1) & _M32
+            x1 = _rotl32(x1, r) ^ x0
+        x0 = (x0 + ks[(i + 1) % 3]) & _M32
+        x1 = (x1 + (ks[(i + 2) % 3] + i + 1)) & _M32
+    return x0, x1
+
+
+def threefry_bits(idx: torch.Tensor, k0: int, k1: int) -> torch.Tensor:
+    """``jax.random.bits(key, (T,), uint32)[idx]`` for the key words
+    ``(k0, k1)``, int64-held: the counter of flat index i is ``(i >> 32,
+    i & 0xFFFFFFFF)`` and the output the xor of threefry2x32's two words."""
+    b0, b1 = _threefry2x32(k0, k1, idx >> 32, idx & _M32)
+    return b0 ^ b1
+
+
 def _centered_from_bits(bits: torch.Tensor) -> torch.Tensor:
     """uint32 (held in int64) -> f32 in [-0.5, 0.5): the top 23 bits into
     the mantissa of [1, 2), minus 1.5 (exact)."""
@@ -121,21 +159,22 @@ def _apply_masks(buf: torch.Tensor, keys: torch.Tensor, signs: torch.Tensor,
     One pair at a time: O(T) memory whatever the cohort size. Per pair the
     reference writes ``acc + (sign*scale) * ((b - 1.5) * sqrt(12))``; XLA
     compiles it as one fused multiply-add with the scalar factors folded,
-    ``fma((sign*scale)*sqrt(12), b - 1.5, acc)``. The port evaluates that
-    FMA (the product of two f32 is exact in f64; one rounding back to f32)
-    so its masks are bitwise equal to the reference's.
+    ``fma((sign*scale)*sqrt(12), b - 1.5, acc)``, in the fast path's
+    unrolled loop and in the threefry path's ``lax.scan`` body alike. The
+    port evaluates that FMA (the product of two f32 is exact in f64; one
+    rounding back to f32) so its masks are bitwise equal to the
+    reference's, on either stream.
     """
-    if prg != "fast":
-        raise NotImplementedError(
-            f"prg={prg!r}: only the 'fast' counter-hash stream is ported; "
-            "threefry waits for a threefry2x32 port")
+    if prg not in ("fast", "threefry"):
+        raise ValueError(f"unknown prg {prg!r}")
+    stream = threefry_bits if prg == "threefry" else _pair_bits
     acc = buf.to(torch.float32)
     idx = torch.arange(buf.shape[0], dtype=torch.int64, device=buf.device)
     scale32 = torch.tensor(scale, dtype=torch.float32)
     std32 = torch.tensor(_UNIT_STD, dtype=torch.float32)
     for (k0, k1), sign in zip(keys.tolist(), signs):
         coef = (sign.to(torch.float32) * scale32) * std32    # f32 scalar
-        d = _centered_from_bits(_pair_bits(idx, k0, k1))
+        d = _centered_from_bits(stream(idx, k0, k1))
         acc = (acc.to(torch.float64) + coef.to(torch.float64)
                * d.to(torch.float64)).to(torch.float32)
     return acc

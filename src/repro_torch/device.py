@@ -2,7 +2,9 @@
 
 Every entry point takes an explicit ``device`` that defaults to
 ``"cuda"``. On a host without CUDA it raises rather than silently
-running on the CPU: a CPU run is asked for with ``device="cpu"``.
+running on the CPU: a CPU run is asked for with ``device="cpu"``. The
+dry run (``launch/dryrun.py``) alone asks for ``device="meta"``: shapes
+and dtypes without storage, so it needs no card.
 """
 from __future__ import annotations
 
@@ -17,7 +19,7 @@ def resolve(device=DEFAULT_DEVICE) -> torch.device:
         raise RuntimeError(
             "CUDA is not available on this host; pass device='cpu' to run "
             "the plain PyTorch path on the CPU")
-    if dev.type not in ("cuda", "cpu"):
+    if dev.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"unsupported device {dev}")
     return dev
 

@@ -98,9 +98,3 @@ def test_repair_correction_bit_exact_and_repairs():
                                         device="cpu")
     np.testing.assert_allclose(total.numpy(),
                                bufs["gridpower"] + bufs["windco"], atol=1e-6)
-
-
-def test_threefry_stream_not_ported_raises():
-    with pytest.raises(NotImplementedError):
-        tsa.mask_packed(np.zeros(8, np.float32), "a", ["a", "b"], SECRET,
-                        prg="threefry", device="cpu")
