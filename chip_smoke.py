@@ -103,9 +103,28 @@ Phases (every failed check exits non-zero):
    1024 multiple) so that the padding runs. Gates: K1-K3 within 1e-5 of
    the unsplit launch, K4 bitwise, one launch a shard, and the 2-shard
    K1 over phase 4's three masked buffers bitwise equal to what a
-   ``MaskedF32Sink`` (which takes no mesh) finalizes from them. Prints
+   ``MaskedF32Sink`` without a mesh finalizes from them. Prints
    the split and unsplit ms side by side and how many split results are
    bitwise equal.
+5i. ``mesh`` (the programs over meshes): (a) the streaming sinks over a
+   device mesh of the one card (``agg_mesh([card] * 2)``, the reference's
+   ``mesh=``): phase 4's three masked buffers through ``MaskedF32Sink``
+   (K1 once a slab a flush), three int8 rows with per-chunk scales at Tp
+   through ``QuantSink`` (K3 likewise) and three residue rows mod 2**16
+   through ``ModularSink`` (K4 once a slab at finalize). Gates: each
+   bitwise equal to the same sink without a mesh, each split kernel
+   launched once a slab (read around the split sink alone), and
+   ``mesh="auto"`` is ``None`` on one card (the FL run stays unsplit).
+   Prints the split and unsplit fold + finalize ms. (b) the pod run over
+   ranks: a one-rank nccl group from a ``FileStore`` under ``build/``, a
+   ``(pod, data, model)`` ``DeviceMesh`` of (1, 1, 1), and ``run_pod``
+   as 5f runs it (``--mesh 1,1,1``), every leaf a ``DTensor``. Gates: its
+   params within 1 f32 ulp of 5f's one-card run (bitwise leaves counted
+   and printed), every collective that one pod step and one FedAvg issue
+   (``record_collectives``) over 1 rank and moving no byte, no kernel
+   launched. Prints its pod-step and FedAvg medians beside 5f's. The
+   group is destroyed before the next phase; a failure to initialise
+   nccl fails the run (nothing falls back to gloo or the CPU).
 6. The compressed planes at full width, on phase 4's trained silos
    (deltas = ``pack_delta(trained, init)``, T padded to Tp, a 1024
    multiple):
@@ -213,7 +232,9 @@ kernel), reset before 5f and read after it (the ``train pod`` path: no
 kernel), reset before 5g and read after it (the ``train sim`` path: K1
 must have run); 5h reads the counters around each checked split call and
 leaves its timing calls out (the ``agg split`` path: K1, K2, K3 and K4
-in both variants, once a shard);
+in both variants, once a shard); 5i reads them around each split sink
+(the ``mesh`` path: K1, K3 and K4 once a slab) and checks that its pod
+run launches none;
 reset again before phase 6a and read after 6e (K3, K4
 in both variants, K5 and K1 must have run), reset before phase 7b and
 read after it (the ``threefry`` path: K1 must have run), and reset
@@ -221,7 +242,7 @@ before phase 8's
 timed serve run and read after it (K6's tensor-core kernel and K7 once a
 layer, K6's f32 kernel never), and around each timed generate of phase
 9 (the ``zoo`` path, summed); the kernels line gives the sum of the
-eleven paths; phase 10 launches no kernel (meta tensors). Each phase
+twelve paths; phase 10 launches no kernel (meta tensors). Each phase
 prints its seconds and peak device memory. The line before the last is
 the ``kernels`` JSON record; the last line is the device record.
 """
@@ -1445,7 +1466,9 @@ def train_pod_phase(device, card: str, reduced: bool = False):
     ``make_train_step`` alone on its slice and batch; the int8 FedAvg of
     the last trained stack within each leaf's largest per-silo scale +
     1e-6 of the f32 mean, both silos bitwise equal. ``reduced`` runs the
-    2-layer variant (a CPU rehearsal). Returns the median pod-step ms."""
+    2-layer variant (a CPU rehearsal). Returns the median pod-step ms,
+    the final params (the ``mesh`` phase holds its run against them) and
+    the fp32 and int8 FedAvg medians."""
     import numpy as np
     import torch
     from repro_torch import tree as _tree
@@ -1548,7 +1571,8 @@ def train_pod_phase(device, card: str, reduced: bool = False):
           f"kernel launches; untraced step median {step_ms:.2f} ms -> "
           f"device idle share {1 - busy_ms / step_ms:.3f}; traced step "
           f"{traced_s * 1e3:.2f} ms; top: {top} [{card}]", flush=True)
-    return step_ms
+    return {"ms": step_ms, "params": out["params"], "fedavg_ms": fp32_ms,
+            "int8_ms": int8_ms}
 
 
 def train_sim_phase(state, device, card: str, reduced: bool = False):
@@ -1595,9 +1619,9 @@ def agg_split_phase(state, device, card: str) -> dict:
     (K1, K2) or Tp - CHUNK (K3, K4: their T stays a CHUNK multiple), held
     against the unsplit launch: K1-K3 within 1e-5, K4 bitwise, one launch
     a shard; then the 2-shard K1 over phase 4's three masked buffers,
-    bitwise equal to a ``MaskedF32Sink`` folding them. Returns the
-    launches of the checked split calls, read from the counters (the
-    timing calls are left out)."""
+    bitwise equal to a ``MaskedF32Sink`` without a mesh folding them.
+    Returns the launches of the checked split calls, read from the
+    counters (the timing calls are left out)."""
     import torch
     from repro_torch.core.streaming import MaskedF32Sink
     from repro_torch.kernels.compressed_agg import ops as cops
@@ -1692,7 +1716,7 @@ def agg_split_phase(state, device, card: str) -> dict:
                                   zip(meshes, times[1:])) + f" [{card}]",
                       flush=True)
 
-    sink = MaskedF32Sink(t, device=device)
+    sink = MaskedF32Sink(t, device=device, mesh=None)
     for c in SILOS:
         sink.fold(state["masked"][c])
     sink_total = sink.finalize()
@@ -1711,6 +1735,196 @@ def agg_split_phase(state, device, card: str) -> dict:
           f"K1 over the masked buffers == MaskedF32Sink, bitwise [{card}]",
           flush=True)
     return {k: v for k, v in tally.items() if v}
+
+
+MESH_SHARDS = 2             # the sinks' device mesh: [card] * 2
+MESH_REPS = 3               # timed fold + finalize runs a sink and mesh
+MESH_POD_ULPS = 1.0         # the DTensor pod run vs the one-card run
+
+
+def mesh_sinks(state, device, card: str) -> dict:
+    """5i (a): the streaming sinks over a device mesh of the one card
+    (``agg_mesh([card] * 2)``): phase 4's three masked buffers through
+    ``MaskedF32Sink`` (K1), three int8 rows with per-chunk scales at Tp
+    through ``QuantSink`` (K3) and three masked residue rows mod 2**16
+    through ``ModularSink`` (K4 at finalize), each bitwise equal to the
+    same sink without a mesh; each split kernel launches once a slab, read
+    from the counters around the split sink alone; ``mesh="auto"`` is
+    ``None`` on one card. Prints the split and unsplit fold + finalize
+    ms."""
+    import torch
+    from repro_torch.core import streaming
+    from repro_torch.kernels.compressed_agg import ops as cops
+    from repro_torch.kernels.secure_agg import ops as sops
+    from repro_torch.sharding import agg as shard
+
+    check(streaming.default_mesh() is None and
+          streaming.MaskedF32Sink(8, device=device).mesh is None,
+          "mesh='auto' is None on one card: the FL run stays unsplit")
+    mesh = shard.agg_mesh([device] * MESH_SHARDS)
+    t = state["T"]
+    tp = t + (-t) % CHUNK
+    gen = torch.Generator(device=device).manual_seed(4321)
+    q = torch.randint(-127, 128, (len(SILOS), t), generator=gen,
+                      device=device, dtype=torch.int8).cpu().numpy()
+    scales = (torch.rand(len(SILOS), tp // CHUNK, generator=gen,
+                         device=device) * 1e-2 + 1e-6).cpu().numpy()
+    z = torch.randint(0, 1 << 16, (len(SILOS), tp), generator=gen,
+                      device=device, dtype=torch.int32)
+    grid = 1e-4
+    planes = {
+        "masked_sum": lambda m: _fold_all(streaming.MaskedF32Sink(
+            t, device=device, mesh=m), [(state["masked"][c],)
+                                        for c in SILOS]),
+        "dequant_reduce": lambda m: _fold_all(streaming.QuantSink(
+            t, device=device, mesh=m), [(c, q[i], scales[i], 10.0 + i)
+                                        for i, c in enumerate(SILOS)]),
+        "masked_dequant_reduce": lambda m: _fold_all(streaming.ModularSink(
+            t, mbits=16, grid=grid, device=device, mesh=m),
+            [(z[i],) for i in range(len(SILOS))]),
+    }
+
+    def counts():
+        return {**sops.LAUNCHES, **cops.LAUNCHES}
+
+    tally = {}
+    for name, run in planes.items():
+        plain = run(None)
+        before = counts()
+        split = run(mesh)
+        delta = {k: v - before[k] for k, v in counts().items()}
+        if device.type == "cuda":    # the plain versions count none
+            check(delta[name] == MESH_SHARDS and
+                  sum(delta.values()) == MESH_SHARDS,
+                  f"the {name} sink over {MESH_SHARDS} slabs launches it "
+                  f"once a slab: {delta}")
+        tally[name] = delta[name]
+        check(split.shape == plain.shape and torch.equal(split, plain),
+              f"the {name} sink over the mesh == without it, bitwise (max "
+              f"err {float((split - plain).abs().max()):.3g})")
+        ms = [statistics.median(sync_seconds(run, m)[1] * 1e3
+                                for _ in range(MESH_REPS))
+              for m in (None, mesh)]
+        print(f"mesh sinks: {name} (3 rows of {t}): unsplit {ms[0]:.3f} ms, "
+              f"over {MESH_SHARDS} slabs {ms[1]:.3f} ms (fold + finalize, "
+              f"median of {MESH_REPS}); bitwise equal [{card}]", flush=True)
+        del plain, split
+    return tally
+
+
+def _fold_all(sink, rows):
+    """``rows`` folded into ``sink``, then its finalize."""
+    for r in rows:
+        sink.fold(*r)
+    return sink.finalize()
+
+
+def mesh_pod(one_card: dict, device, card: str,
+             reduced: bool = False) -> None:
+    """5i (b): the pod run over a mesh of ranks on the one card: a process
+    group of one rank (nccl on the card, gloo on the CPU) from a
+    ``FileStore``, a ``(pod, data, model)`` mesh of (1, 1, 1), and
+    ``run_pod`` as 5f runs it (same seed, batches and cadence) through
+    the ``DTensor`` path. Gates: its params within ``MESH_POD_ULPS`` f32
+    ulp of 5f's (``one_card["params"]``), and the counts of how many
+    leaves are bitwise printed; every collective that one pod step and
+    one FedAvg issue (``record_collectives``) has a group of 1 rank and
+    moves no byte. The group is destroyed before the phase ends."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+    from repro_torch import tree as _tree
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+    from repro_torch.launch.hlo_analysis import record_collectives
+    from repro_torch.launch.mesh import init_ranks
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.sharding.specs import NamedSharding, P
+    from repro_torch.training import (fedavg_pod_params,
+                                      make_multipod_train_step)
+
+    store = ROOT / "build" / "mesh_store"
+    store.parent.mkdir(exist_ok=True)
+    store.unlink(missing_ok=True)
+    init_ranks("nccl" if device.type == "cuda" else "gloo", 1, 0, store)
+    try:
+        args = train.parse_args(
+            ["--mode", "pod", "--steps", str(POD_STEPS), "--sync-every",
+             str(POD_SYNC), "--batch-size", str(BATCH_SIZE), "--seq-len",
+             str(SEQ_LEN), "--lr", str(LR), "--seed", "0", "--device",
+             str(device), "--mesh", "1,1,1"] + ([] if reduced else
+                                                 ["--full"]))
+        out = train.run_pod(args)
+        mesh = out["mesh"]
+        check(mesh.device_mesh is not None and mesh.size == 1,
+              f"the run went over a mesh of ranks: {mesh}")
+        leaves = _tree.leaves(out["params"])
+        check(all(isinstance(a, DTensor) for a in leaves),
+              "every leaf of the run is a DTensor")
+        ulps, same = 0.0, 0
+        for a, b in zip(leaves, _tree.leaves(one_card["params"])):
+            a = a.to_local()
+            same += bool(torch.equal(a, b))
+            if not torch.equal(a, b):
+                ulps = max(ulps, ulps_off(a, b.double()))
+        check(ulps <= MESH_POD_ULPS,
+              f"the DTensor pod run within {MESH_POD_ULPS} ulp of the "
+              f"one-card run: {ulps:.3g}")
+        cfg = get_config(args.arch)
+        cfg = cfg.reduced() if reduced else cfg
+        step = make_multipod_train_step(
+            build_model(cfg, device=device), adamw(args.lr), train.N_PODS)
+        toks = train.pod_batch(np.random.default_rng(1), cfg.vocab,
+                               args.batch_size, args.seq_len)
+        batch = {"tokens": NamedSharding(mesh, P("pod", "data", None)).place(
+            torch.from_numpy(toks).to(device))}
+        with record_collectives() as rec_step:
+            step(out["params"], out["opt_state"], batch)
+        with record_collectives() as rec_avg:
+            fedavg_pod_params(out["params"])
+        for what, rec in (("pod step", rec_step), ("FedAvg", rec_avg)):
+            summ = rec.summary()
+            check(all(op["group_size"] == 1 and op["traffic"] == 0
+                      for op in summ["ops"]),
+                  f"one rank: every collective of a {what} is over 1 rank "
+                  f"and moves no byte")
+            print(f"mesh pod: record_collectives of one {what}: "
+                  f"{summ['count']} ops, result bytes "
+                  f"{sum(op['bytes'] for op in summ['ops'])}, traffic by "
+                  f"kind {summ['bytes_by_kind']}, ici {summ['ici_bytes']} "
+                  f"dcn {summ['dcn_bytes']} [{card}]", flush=True)
+        step_ms = statistics.median(out["step_s"]) * 1e3
+        avg_ms = statistics.median(out["fedavg_s"]) * 1e3
+        print(f"mesh pod: {'reduced' if reduced else 'full width'} "
+              f"fedforecast-100m over a (pod, data, model) mesh of (1, 1, 1) "
+              f"ranks ({dist.get_backend()}), {POD_STEPS} steps of "
+              f"{args.batch_size} x {args.seq_len}, FedAvg every {POD_SYNC}; "
+              f"params vs the one-card run: {same} of {len(leaves)} leaves "
+              f"bitwise, max {ulps:.3g} ulp; pod step median {step_ms:.2f} "
+              f"ms (one card {one_card['ms']:.2f}), FedAvg median "
+              f"{avg_ms:.3f} ms (one card {one_card['fedavg_ms']:.3f}) "
+              f"[{card}]", flush=True)
+    finally:
+        dist.destroy_process_group()
+        store.unlink(missing_ok=True)
+
+
+def mesh_phase(state, one_card: dict, device, card: str,
+               reduced: bool = False) -> dict:
+    """5i ``mesh``: (a) the sinks over a device mesh, (b) the pod run over
+    a mesh of ranks, which launches no kernel (its step runs
+    ``impl="xla"``, its FedAvg is plain PyTorch). Returns (a)'s split
+    launches. ``reduced``: the 2-layer config (a CPU rehearsal)."""
+    from repro_torch.kernels.compressed_agg import ops as cops
+    from repro_torch.kernels.secure_agg import ops as sops
+    tally = mesh_sinks(state, device, card)
+    before = {**sops.LAUNCHES, **cops.LAUNCHES}
+    mesh_pod(one_card, device, card, reduced)
+    check({**sops.LAUNCHES, **cops.LAUNCHES} == before,
+          "the pod run over ranks launches no kernel")
+    return tally
 
 
 # ---------------------------------------------------------------------------
@@ -2640,8 +2854,9 @@ def main() -> int:
     print("async path: no repo kernel, as in the reference (the fold is "
           "plain PyTorch on the card)", flush=True)
     reset_launches()
-    timed = {"pod ms": run_phase("train pod", peaks, card, train_pod_phase,
-                                 device, card)}
+    one_card = run_phase("train pod", peaks, card, train_pod_phase, device,
+                         card)
+    timed = {"pod ms": one_card["ms"]}
     pod = read_path("train pod", ())
     check(not any(pod.values()),
           "the train pod path launches no kernel (its step runs "
@@ -2662,6 +2877,14 @@ def main() -> int:
         check(split[k] > 0, f"{k} launched on the agg split path")
     print(f"agg split path: launches {split} (the split calls only)",
           flush=True)
+    reset_launches()
+    mesh = run_phase("mesh", peaks, card, mesh_phase, state, one_card,
+                     device, card)
+    mesh = {k: mesh.get(k, 0) for k in fp32}
+    for k in ("masked_sum", "dequant_reduce", "masked_dequant_reduce"):
+        check(mesh[k] > 0, f"{k} launched on the mesh path")
+    print(f"mesh path: launches {mesh} (the split sinks only)", flush=True)
+    del one_card
     reset_launches()
     for what, fn in (("int8 round", int8_phase),
                      ("secure int8 round", secure_int8_phase),
@@ -2695,7 +2918,7 @@ def main() -> int:
     check(served["flash_attention_f32"] == 0,
           "the bf16 serve path runs K6's tensor-core kernel only")
     launches = {k: fp32[k] + fl[k] + fleet[k] + asynchronous[k] + pod[k]
-                + sim[k] + split[k] + compressed[k] + threefry[k]
+                + sim[k] + split[k] + mesh[k] + compressed[k] + threefry[k]
                 + served[k] for k in fp32}
     for k in kernels:
         check(launches[k["name"]] > 0, f"{k['name']} launched on the path")

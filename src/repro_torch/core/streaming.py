@@ -33,10 +33,19 @@ the reference blocks on its result, so the span holds the kernel's time;
 each flush bumps ``agg.stream_fold_batches`` and folds its working-set
 high-water mark into the ``agg.accumulator_peak_bytes`` gauge.
 
-The reference's ``mesh`` argument is not taken here: the sinks always
-run the unsplit kernels on their own device. The T split itself is
-ported as standalone ops (``repro_torch.sharding.agg``); it joins the
-sinks once a run across several cards shows it faster than one launch.
+Mesh: the fp32, int8 and masked-integer sinks take the reference's
+``mesh`` argument, a 1-D ``("shard",)`` aggregation mesh over a device
+list in one process (``repro_torch.sharding.agg``; one controller over
+several devices, no collective). ``"auto"`` (the default) is
+``agg_mesh()``: the visible CUDA devices, ``None`` below two, so on one
+card the sinks run the unsplit kernels exactly as before. With a mesh,
+``MaskedF32Sink`` and ``QuantSink`` keep their accumulator padded to the
+split's width as one slab a shard, each on its device, and each flush
+launches K1 / K3 once a slab; ``ModularSink``'s wrap-around fold stays
+whole and its decode launches K4 once a slab, as the reference's. The
+slabs are gathered on the mesh's first device at ``finalize`` and cut
+back to T; every column is reduced by the same kernel as unsplit, so the
+result is bitwise the unsplit sink's.
 """
 from __future__ import annotations
 
@@ -52,6 +61,7 @@ from repro_torch.device import DEFAULT_DEVICE, resolve
 from repro_torch.kernels.compressed_agg.ops import (CHUNK, dequant_reduce,
                                                     masked_dequant_reduce)
 from repro_torch.kernels.secure_agg.ops import masked_sum
+from repro_torch.sharding import agg as _shard
 
 _M32 = 0xFFFFFFFF
 
@@ -73,6 +83,26 @@ class _CorrectionsFolded:
 CORRECTIONS_FOLDED = _CorrectionsFolded()
 
 
+def default_mesh():
+    """The aggregation mesh of ``mesh="auto"``: the visible CUDA devices,
+    or ``None`` with fewer than two."""
+    return _shard.agg_mesh()
+
+
+def _resolve_mesh(mesh):
+    return default_mesh() if mesh == "auto" else mesh
+
+
+def _add_slabs(acc: Optional[list], slabs: list) -> list:
+    """The per-shard accumulator plus this flush's per-shard sums (in
+    place from the second flush on)."""
+    if acc is None:
+        return slabs
+    for a, s in zip(acc, slabs):
+        a.add_(s)
+    return acc
+
+
 class _SinkBase:
     """Shared staging/flush bookkeeping of the streaming sinks."""
 
@@ -80,12 +110,13 @@ class _SinkBase:
 
     def __init__(self, t: int, *, batch: int = DEFAULT_STREAM_BATCH,
                  device=DEFAULT_DEVICE, telemetry=None,
-                 run_id: Optional[str] = None):
+                 run_id: Optional[str] = None, mesh="auto"):
         if t <= 0:
             raise ValueError("sink needs a positive buffer size")
         self.t = int(t)
         self.batch = max(1, int(batch))
         self.device = resolve(device)
+        self.mesh = _resolve_mesh(mesh)
         self.telemetry = telemetry
         self.run_id = run_id
         self.n_folded = 0            # net clients folded (unfolds subtract)
@@ -158,11 +189,15 @@ class MaskedF32Sink(_SinkBase):
 
     def __init__(self, t: int, **kw):
         super().__init__(t, **kw)
-        self._acc: Optional[torch.Tensor] = None   # allocated by 1st flush
+        # with a mesh the accumulator is padded to the split's width and
+        # kept as one slab a shard for its whole life
+        self.tp = t if self.mesh is None else t + _shard._t_pad(
+            t, self.mesh.size, _shard.LANE)
+        self._acc = None             # allocated by the first flush
 
     @property
     def accumulator_bytes(self) -> int:
-        return 4 * self.t
+        return 4 * self.tp
 
     def fold(self, buf, weight: float = 1.0):
         """Stage one (T,) buffer (array or tensor, moved to the sink's
@@ -197,6 +232,10 @@ class MaskedF32Sink(_SinkBase):
         ws = torch.tensor([w for _, w in staged], dtype=torch.float32,
                           device=self.device)
         with self._span("masked_sum"):
+            if self.mesh is not None:
+                self._acc = _add_slabs(self._acc, _shard.masked_sum_slabs(
+                    x, ws, mesh=self.mesh))
+                return
             s = masked_sum(x, ws)
             if self._acc is None:
                 self._acc = s
@@ -207,12 +246,15 @@ class MaskedF32Sink(_SinkBase):
                 self._acc.add_(s)
 
     def finalize(self) -> torch.Tensor:
-        """Flush what is staged; the (T,) fp32 sum on the sink's device."""
+        """Flush what is staged; the (T,) fp32 sum on the sink's device
+        (with a mesh, on its first device)."""
         self._flush()
         self._finalized = True
         if self._acc is None:
             return torch.zeros(self.t, dtype=torch.float32,
                                device=self.device)
+        if self.mesh is not None:
+            return _shard.gather(self._acc, self.t)
         return self._acc
 
 
@@ -285,7 +327,12 @@ class ModularSink(_SinkBase):
                             dtype=torch.float32, device=self.device)
         z = u32_from_i64(self._acc).reshape(1, self.tp)
         with self._span("masked_dequant_reduce"):
-            out = masked_dequant_reduce(z, scales, modulus_bits=self.mbits)
+            if self.mesh is not None:
+                out = _shard.sharded_masked_dequant_reduce(
+                    z, scales, modulus_bits=self.mbits, mesh=self.mesh)
+            else:
+                out = masked_dequant_reduce(z, scales,
+                                            modulus_bits=self.mbits)
         return out[:self.t]
 
 
@@ -347,6 +394,10 @@ class QuantSink(_SinkBase):
         ws = torch.tensor([s[2] for s in staged], dtype=torch.float32,
                           device=self.device)
         with self._span("dequant_reduce"):
+            if self.mesh is not None:
+                self._acc = _add_slabs(self._acc, _shard.dequant_reduce_slabs(
+                    q, scales, ws, mesh=self.mesh))
+                return
             s = dequant_reduce(q, scales, ws)
             if self._acc is None:
                 self._acc = s
@@ -359,6 +410,8 @@ class QuantSink(_SinkBase):
         if self._acc is None:
             return torch.zeros(self.t, dtype=torch.float32,
                                device=self.device)
+        if self.mesh is not None:
+            return _shard.gather(self._acc, self.t)
         return self._acc[:self.t]
 
 
@@ -418,7 +471,8 @@ def _masked_contract(m: dict, expect: Optional[tuple]) -> tuple:
 def stream_reduce_masked(msgs: Iterable[dict], *, corrections=None,
                          batch: int = DEFAULT_STREAM_BATCH,
                          device=DEFAULT_DEVICE, telemetry=None,
-                         run_id: Optional[str] = None) -> torch.Tensor:
+                         run_id: Optional[str] = None,
+                         mesh="auto") -> torch.Tensor:
     """Streaming ``compression.reduce_masked``: contract checks, then the
     (T,) f32 decoded sum, bit-exact whatever the order. ``corrections``
     is an iterable aligned with ``msgs`` (or None)."""
@@ -433,7 +487,7 @@ def stream_reduce_masked(msgs: Iterable[dict], *, corrections=None,
             t, mbits, grid = contract
             sink = ModularSink(t, mbits=mbits, grid=grid, batch=batch,
                                device=dev, telemetry=telemetry,
-                               run_id=run_id)
+                               run_id=run_id, mesh=mesh)
         sink.fold(m["z"])
         if corr_iter is not None:
             try:
@@ -458,7 +512,7 @@ def stream_reduce_compressed(msgs: Iterable[dict], weights, *,
                              return_norms: bool = False,
                              batch: int = DEFAULT_STREAM_BATCH,
                              device=DEFAULT_DEVICE, telemetry=None,
-                             run_id: Optional[str] = None):
+                             run_id: Optional[str] = None, mesh="auto"):
     """Streaming ``compression.reduce_compressed``: weights are used as
     given, norms ride along per fold; ``weights`` is indexable and
     aligned with the iteration order of ``msgs``."""
@@ -485,7 +539,8 @@ def stream_reduce_compressed(msgs: Iterable[dict], weights, *,
         else:
             if sink is None:
                 sink = QuantSink(t, batch=batch, device=dev,
-                                 telemetry=telemetry, run_id=run_id)
+                                 telemetry=telemetry, run_id=run_id,
+                                 mesh=mesh)
             sink.fold(str(i), quantized_values(m), m["scales"], w[i])
         i += 1
     if sink is None:
@@ -500,7 +555,8 @@ def stream_masked_packed(buffers: Iterable, weights: Optional[Sequence]
                          = None, *, corrections=None,
                          batch: int = DEFAULT_STREAM_BATCH,
                          device=DEFAULT_DEVICE, telemetry=None,
-                         run_id: Optional[str] = None) -> torch.Tensor:
+                         run_id: Optional[str] = None,
+                         mesh="auto") -> torch.Tensor:
     """Streaming ``secure_agg.aggregate_masked_packed``: same defaults
     (uniform mean when ``weights`` is None, else the weights as given),
     corrections fold as negative-weight rows."""
@@ -517,7 +573,7 @@ def stream_masked_packed(buffers: Iterable, weights: Optional[Sequence]
         if sink is None:
             sink = MaskedF32Sink(int(np.prod(b.shape)), batch=batch,
                                  device=device, telemetry=telemetry,
-                                 run_id=run_id)
+                                 run_id=run_id, mesh=mesh)
         sink.fold(b, w[i])
         if corr_iter is not None:
             sink.fold_correction(next(corr_iter), w[i])

@@ -24,8 +24,10 @@ def batch_pspec(mesh, batch_like) -> dict:
 
 
 def shard_batch(mesh, batch):
-    """Every array of ``batch`` as a tensor placed by ``batch_pspec`` (on
-    a one-device mesh: on its device)."""
+    """Every array of ``batch`` as a tensor placed by ``batch_pspec``: on a
+    mesh over ranks a ``DTensor`` whose batch dim is split over ``"pod"``
+    then ``"data"`` (each rank keeps its rows), on a one-device mesh a
+    tensor on its device."""
     batch = _tree.tree_map(torch.as_tensor, batch)
     specs = batch_pspec(mesh, batch)
     return _tree.tree_map(lambda x, s: NamedSharding(mesh, s).place(x),

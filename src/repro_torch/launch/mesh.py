@@ -1,28 +1,96 @@
 """Mesh builders and the H100 hardware model (port of
 ``repro.launch.mesh``).
 
-The mesh itself is the plain descriptor of ``repro_torch.sharding.mesh``
-(re-exported here as ``Mesh``). The production shapes (16 x 16 and
-2 x 16 x 16) exist only as abstract descriptors, for the specs; the dry
-run's mesh is one card (``make_card_mesh``, ``h100x1`` in its artifacts).
+A mesh is ``repro_torch.sharding.mesh.Mesh`` (re-exported here). With no
+process group initialised the builders return the reference's shapes as
+abstract descriptors (specs only) or over a device list. Once a group is
+up (``init_ranks``: gloo on the CPU, nccl on the card, or the ``fake``
+group at 256 or 512 ranks for the dry run) they return a mesh over its
+ranks: a ``DeviceMesh`` with the reference's axis names and order, its
+device type the backend's (``cpu`` for gloo and fake, ``cuda`` for
+nccl).
+
+Mesh names in the dry run's artifacts: ``h100x1`` (one card),
+``h100x16x16`` and ``h100x2x16x16`` (the production meshes).
 """
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
+from typing import Optional
+
+import torch
+import torch.distributed as dist
 
 from repro_torch.sharding.mesh import Mesh
 
-__all__ = ["CARD_MESH_NAME", "H100", "HardwareModel", "Mesh",
-           "make_card_mesh", "make_host_mesh", "make_production_mesh"]
+__all__ = ["CARD_MESH_NAME", "H100", "HardwareModel", "Mesh", "init_ranks",
+           "make_card_mesh", "make_host_mesh", "make_production_mesh",
+           "mesh_name", "rank_mesh"]
 
 CARD_MESH_NAME = "h100x1"
+PRODUCTION_SHAPES = {False: ((16, 16), ("data", "model")),
+                     True: ((2, 16, 16), ("pod", "data", "model"))}
+_DEVICE_TYPE = {"gloo": "cpu", "fake": "cpu", "nccl": "cuda"}
+
+
+def init_ranks(backend: str, world: int, rank: int,
+               init_file: Optional[str] = None) -> None:
+    """Initialise the default process group: ``backend`` ``"gloo"`` or
+    ``"nccl"`` over a ``FileStore`` at ``init_file`` (no TCP port to race
+    for), or ``"fake"`` (rank 0 of a world that exists only in shapes:
+    every collective returns at once; ``FakeStore`` needs no file). nccl
+    takes this rank's card, ``cuda:<rank % count>``."""
+    if dist.is_initialized():
+        raise RuntimeError("a process group is already initialised")
+    if backend == "fake":
+        from torch.testing._internal.distributed.fake_pg import FakeStore
+        dist.init_process_group("fake", store=FakeStore(), rank=rank,
+                                world_size=world)
+        return
+    if backend not in ("gloo", "nccl"):
+        raise ValueError(f"unknown backend {backend!r}")
+    if init_file is None:
+        raise ValueError(f"the {backend} group needs an init file")
+    if backend == "nccl":
+        torch.cuda.set_device(rank % torch.cuda.device_count())
+    store = dist.FileStore(os.fspath(init_file), world)
+    dist.init_process_group(backend, store=store, rank=rank,
+                            world_size=world)
+
+
+def rank_mesh(sizes, names) -> Mesh:
+    """A mesh of ``names`` of ``sizes`` over the default group's ranks,
+    row-major (their product must be the world size)."""
+    from torch.distributed.device_mesh import DeviceMesh
+    world = dist.get_world_size()
+    n = 1
+    for s in sizes:
+        n *= s
+    if n != world:
+        raise ValueError(f"a mesh of {dict(zip(names, sizes))} needs {n} "
+                         f"ranks, the group has {world}")
+    kind = _DEVICE_TYPE[dist.get_backend()]
+    dm = DeviceMesh(kind, torch.arange(world).reshape(sizes),
+                    mesh_dim_names=tuple(names))
+    return Mesh.over_ranks(dm)
 
 
 def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
-    """The reference's production shapes, abstract (specs only)."""
-    if multi_pod:
-        return Mesh((2, 16, 16), ("pod", "data", "model"))
-    return Mesh((16, 16), ("data", "model"))
+    """The reference's production shapes, (16, 16) and (2, 16, 16): over
+    the group's ranks when one is initialised, else abstract."""
+    sizes, names = PRODUCTION_SHAPES[bool(multi_pod)]
+    if dist.is_initialized():
+        return rank_mesh(sizes, names)
+    return Mesh(sizes, names)
+
+
+def mesh_name(mesh: Mesh) -> str:
+    """The artifacts' name of a mesh: ``h100x1`` for one card, else
+    ``h100x`` and the axis sizes (``h100x16x16``, ``h100x2x16x16``)."""
+    if mesh.size == 1:
+        return CARD_MESH_NAME
+    return "h100x" + "x".join(str(s) for s in mesh.axis_sizes)
 
 
 def make_card_mesh() -> Mesh:
@@ -33,12 +101,14 @@ def make_card_mesh() -> Mesh:
 
 def make_host_mesh(data: int = 2, model: int = 4, *, pod: int = 0,
                    devices=None) -> Mesh:
-    """A small ``(data, model)`` mesh, ``(pod, data, model)`` when ``pod``,
-    over ``devices`` (one per mesh position), or abstract when ``devices``
-    is None."""
-    if pod:
-        return Mesh((pod, data, model), ("pod", "data", "model"), devices)
-    return Mesh((data, model), ("data", "model"), devices)
+    """A small ``(data, model)`` mesh, ``(pod, data, model)`` when ``pod``:
+    over ``devices`` (one per position) when given, else over the
+    initialised group's ranks, else abstract."""
+    sizes, names = ((pod, data, model), ("pod", "data", "model")) if pod \
+        else ((data, model), ("data", "model"))
+    if devices is None and dist.is_initialized():
+        return rank_mesh(sizes, names)
+    return Mesh(sizes, names, devices)
 
 
 @dataclass(frozen=True)

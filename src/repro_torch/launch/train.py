@@ -5,22 +5,35 @@ Two modes:
          contract -> job -> pull-based rounds over the message board ->
          deployment, in one process (``repro_torch.core.Consortium``).
   pod  — the silo-stacked data plane: 2 silos, each leaf with a leading
-         silo dim, trained together on one card (each silo's step its own,
-         ``make_multipod_train_step``), with a FedAvg over the silo dim
-         every ``--sync-every`` steps (DiLoCo-style local SGD).
+         silo dim, with a FedAvg over the silo dim every ``--sync-every``
+         steps (DiLoCo-style local SGD). In one process (no process
+         group) both silos stack on one device and each silo's step runs
+         on its own slice. Under ``torchrun`` (a world over 1, or any
+         initialised group) it is the reference's run over a
+         ``(pod, data, model)`` mesh of ranks (``--mesh``, default the
+         reference's 2,2,2): every leaf a ``DTensor``, the silo dim over
+         ``"pod"``, each pod training its own silos on its ``(data,
+         model)`` sub-mesh, the FedAvg a collective over the pod group;
+         nccl on the card, gloo with ``--device cpu``.
 
 Runs on CUDA unless ``--device cpu`` is given. Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --mode sim \\
       --arch fedforecast-100m --rounds 3 --local-steps 5 --batch-size 4
   PYTHONPATH=src python -m repro_torch.launch.train --mode pod \\
       --arch fedforecast-100m --steps 8 --sync-every 4 --device cpu
+  PYTHONPATH=src torchrun --nproc-per-node 8 -m repro_torch.launch.train \\
+      --mode pod --mesh 2,2,2 --device cpu              # 8 gloo ranks
+  PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
+      --mode pod --mesh 2,2,1                           # 4 cards, nccl
 """
 
 import argparse
+import os
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.device import DEFAULT_DEVICE, resolve, synchronize
 
@@ -90,7 +103,8 @@ def run_pod(args, params=None, *, on_step=None):
     stack before any FedAvg and the params after it. Returns the final
     silo-stacked params and optimizer state, the per-silo losses of every
     step, and the seconds of every pod step and every FedAvg (host clock,
-    the device synchronised)."""
+    the device synchronised). With a process group initialised the run
+    is over ``args.mesh``'s ranks and the trees are ``DTensor``s."""
     from repro_torch import tree as _tree
     from repro_torch.configs import get_config
     from repro_torch.launch.mesh import make_host_mesh
@@ -102,11 +116,19 @@ def run_pod(args, params=None, *, on_step=None):
                                       make_multipod_train_step)
     from repro_torch.training.steps import stack_silos
 
-    device = resolve(args.device)
     n_pods = N_PODS
-    # the silos stack on the one visible device: a (pod, data, model)
-    # descriptor of sizes 1 over it, so every spec places on that card
-    mesh = make_host_mesh(data=1, model=1, pod=1, devices=[device])
+    if dist.is_initialized():
+        pod, data, model_ax = mesh_sizes(getattr(args, "mesh", None))
+        mesh = make_host_mesh(data=data, model=model_ax, pod=pod)
+        device = mesh.local_device
+        if device.type != resolve(args.device).type:
+            raise ValueError(f"the group's ranks are on {device.type}, "
+                             f"not {args.device}")
+    else:
+        device = resolve(args.device)
+        # the silos stack on the one visible device: a (pod, data, model)
+        # descriptor of sizes 1 over it, so every spec places on that card
+        mesh = make_host_mesh(data=1, model=1, pod=1, devices=[device])
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
@@ -121,13 +143,22 @@ def run_pod(args, params=None, *, on_step=None):
     p_specs = _tree.tree_map(lambda s: P("pod", *s),
                              param_pspecs(model.abstract_params(), mesh))
     params = place(params, to_shardings(p_specs, mesh))
+    if mesh.device_mesh is not None:
+        # the moments follow their parameters' placement
+        opt_state = dict(opt_state, **{
+            k: place(opt_state[k], to_shardings(p_specs, mesh))
+            for k in ("m", "v")})
+        b_spec = to_shardings(P("pod", "data", None), mesh)
     step = make_multipod_train_step(model, opt, n_pods)
     rng = np.random.default_rng(args.seed)
     losses, step_s, fedavg_s = [], [], []
+    say = not dist.is_initialized() or dist.get_rank() == 0
     for i in range(args.steps):
         toks = pod_batch(rng, cfg.vocab, args.batch_size, args.seq_len,
                          n_pods)
         batch = {"tokens": torch.from_numpy(toks).to(device)}
+        if mesh.device_mesh is not None:
+            batch = {"tokens": b_spec.place(batch["tokens"])}
         before = (params, opt_state)
         synchronize(device)
         t0 = time.perf_counter()
@@ -141,19 +172,38 @@ def run_pod(args, params=None, *, on_step=None):
             params = fedavg_pod_params(trained)   # Model Aggregator
             synchronize(device)
             fedavg_s.append(time.perf_counter() - t0)
-        loss = metrics["loss"].cpu().numpy()
+        loss = _whole(metrics["loss"]).cpu().numpy()
         losses.append(loss)
         if on_step is not None:
             on_step(i, {"before": before, "batch": batch,
                         "trained": trained, "params": params,
                         "metrics": metrics, "synced": synced})
         before = trained = None
-        print(f"step {i}: loss per silo = {loss.round(4)}"
-              f"{' (fedavg)' if synced else ''} ({step_s[-1]:.3f} s)")
-    print("pod-mode training complete")
+        if say:
+            print(f"step {i}: loss per silo = {loss.round(4)}"
+                  f"{' (fedavg)' if synced else ''} ({step_s[-1]:.3f} s)")
+    if say:
+        print("pod-mode training complete")
     return {"params": params, "opt_state": opt_state,
             "losses": np.stack(losses), "step_s": step_s,
-            "fedavg_s": fedavg_s}
+            "fedavg_s": fedavg_s, "mesh": mesh}
+
+
+def _whole(x):
+    """A ``DTensor``'s global value on every rank; a tensor as it is."""
+    from torch.distributed.tensor import DTensor
+    return x.full_tensor() if isinstance(x, DTensor) else x
+
+
+def mesh_sizes(text) -> tuple:
+    """``"pod,data,model"`` (default the reference's ``2,2,2``) as three
+    ints."""
+    sizes = tuple(int(n) for n in (text or "2,2,2").split(","))
+    if len(sizes) != 3 or min(sizes) < 1:
+        raise ValueError(f"--mesh takes pod,data,model, got {text!r}")
+    if N_PODS % sizes[0]:
+        raise ValueError(f"{N_PODS} silos do not split over {sizes[0]} pods")
+    return sizes
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -176,6 +226,10 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="use the full (non-reduced) architecture")
     ap.add_argument("--device", default=DEFAULT_DEVICE,
                     help="cuda (default) or cpu")
+    ap.add_argument("--mesh", default="2,2,2",
+                    help="pod,data,model sizes of the pod mode's mesh of "
+                         "ranks (under torchrun; their product is the "
+                         "world size)")
     return ap.parse_args(argv)
 
 
@@ -183,7 +237,17 @@ def main(argv=None):
     args = parse_args(argv)
     if args.mode == "sim":
         return run_sim(args)
-    return run_pod(args)
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world == 1 or dist.is_initialized():
+        return run_pod(args)
+    # under torchrun: one rank of the mesh, its group from the env
+    if resolve(args.device).type == "cuda":
+        torch.cuda.set_device(int(os.environ["LOCAL_RANK"]))
+    dist.init_process_group("nccl" if args.device != "cpu" else "gloo")
+    try:
+        return run_pod(args)
+    finally:
+        dist.destroy_process_group()
 
 
 if __name__ == "__main__":

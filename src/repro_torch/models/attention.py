@@ -22,11 +22,18 @@ which).
 """
 from __future__ import annotations
 
+import os
+
 import torch
+from torch.distributed.tensor import (DTensor, Replicate, Shard,
+                                      distribute_tensor)
+
+from repro_torch import tree as _tree
 
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.models.layers import (apply_rope, dense_init, rms_norm,
                                        softcap)
+from repro_torch.sharding.specs import P, constrain, replicated_call
 
 NEG_INF = -2.3819763e38  # most-negative bf16-representable
 Q_CHUNK = 512
@@ -65,6 +72,11 @@ def _attend_block(q, k, v, mask, *, logit_softcap: float, scale: float):
     B, Sq, H, _ = q.shape
     Dv = v.shape[-1]
     scores = _grouped_scores(q, k) * scale            # (B,Hkv,G,Sq,Sk) f32
+    if os.environ.get("REPRO_TREE_DECODE") == "1" and Sq == 1:
+        # tree_decode variant: the scores stay sharded on the KV-sequence
+        # dim over "data" (the mesh in scope; none: the identity), so the
+        # softmax reduces (B, H) partials instead of gathering the cache
+        scores = constrain(scores, P(None, None, None, None, "data"))
     scores = softcap(scores, logit_softcap)
     scores = torch.where(mask, scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1).to(v.dtype)
@@ -216,6 +228,14 @@ def _ring_write(cache: dict, positions: torch.Tensor, new: dict) -> dict:
     if positions.shape[1] > T:
         positions = positions[:, -T:]
         new = {key: value[:, -T:] for key, value in new.items()}
+    if any(isinstance(a, DTensor) for a in
+           list(cache.values()) + list(new.values())):
+        return _ring_write_over_ranks(cache, positions, new)
+    return _write_slots(cache, positions, new)
+
+
+def _write_slots(cache: dict, positions: torch.Tensor, new: dict) -> dict:
+    T = cache["pos"].shape[1]
     slots = (positions % T).long()                               # (B,S)
     b_idx = torch.arange(positions.shape[0],
                          device=positions.device)[:, None]
@@ -223,6 +243,93 @@ def _ring_write(cache: dict, positions: torch.Tensor, new: dict) -> dict:
         cache[key][b_idx, slots] = value
     cache["pos"][b_idx, slots] = positions.to(torch.int32)
     return cache
+
+
+def _ring_write_over_ranks(cache: dict, positions, new: dict) -> dict:
+    """``_ring_write`` of ``DTensor``s: each rank writes its own rows and
+    heads into its shard of the cache. A cache leaf keeps its placement
+    (a fresh plain one takes the new values', whole on the slot dim); the
+    new values and positions are redistributed to it. A cache sharded on
+    its slot dim (a long ring over "data") is written whole instead
+    (``replicated_call``: gathered, then replicated)."""
+    ref = next(v for v in list(new.values()) + list(cache.values())
+               if isinstance(v, DTensor))
+    mesh = ref.device_mesh
+
+    def target(leaf, like):
+        if isinstance(leaf, DTensor):
+            return list(leaf.placements)
+        return [p if isinstance(p, Shard) and p.dim != 1 and p.dim < leaf.dim()
+                else Replicate() for p in like.placements]
+
+    like = next((v for v in new.values() if isinstance(v, DTensor)), ref)
+    targets = {k: target(cache[k], like) for k in list(new) + ["pos"]}
+    if any(isinstance(p, Shard) and p.dim == 1
+           for pl in targets.values() for p in pl):
+        written = replicated_call(_write_slots, cache, positions, new)
+        cache.update(written)
+        return cache
+    local = {}
+    for k, pl in targets.items():
+        if not isinstance(cache[k], DTensor):
+            cache[k] = distribute_tensor(cache[k], mesh, pl,
+                                         src_data_rank=None)
+        local[k] = cache[k].to_local()
+    vals = {k: _placed_local(v, mesh, targets[k]) for k, v in new.items()}
+    _write_slots(local, _placed_local(positions, mesh, targets["pos"]), vals)
+    return cache
+
+
+def _placed_local(x, mesh, placements) -> torch.Tensor:
+    """This rank's shard of ``x`` (a ``DTensor``, or a plain tensor that
+    every rank holds whole) under ``placements``."""
+    if isinstance(x, DTensor):
+        return x.redistribute(mesh, placements).to_local()
+    return distribute_tensor(x, mesh, placements,
+                             src_data_rank=None).to_local()
+
+
+def put(dst: torch.Tensor, i: int, src: torch.Tensor) -> torch.Tensor:
+    """``dst[i] = src`` in place; returns ``dst``. Over ranks each rank
+    writes its shard: ``dst`` keeps its placement (a plain ``dst`` takes
+    ``src``'s, one dim down) and ``src`` is redistributed to match."""
+    if not isinstance(src, DTensor) and not isinstance(dst, DTensor):
+        dst[i] = src
+        return dst
+    ref = src if isinstance(src, DTensor) else dst
+    mesh = ref.device_mesh
+    if isinstance(dst, DTensor):
+        if any(isinstance(p, Shard) and p.dim == 0 for p in dst.placements):
+            return replicated_call(put, dst, i, src)
+        inner = [Shard(p.dim - 1) if isinstance(p, Shard) else Replicate()
+                 for p in dst.placements]
+    else:
+        inner = [p if isinstance(p, Shard) else Replicate()
+                 for p in src.placements]
+        dst = distribute_tensor(dst, mesh, [
+            Shard(p.dim + 1) if isinstance(p, Shard) else p for p in inner],
+            src_data_rank=None)
+    dst.to_local()[i] = _placed_local(src, mesh, inner)
+    return dst
+
+
+def layer_views(caches: dict, i: int):
+    """Layer ``i`` of stacked caches as views of the stack, and a copy of
+    that tree's dicts holding the same views (for ``put_back``)."""
+    views = _tree.index(caches, i)
+    return views, _tree.tree_map(lambda a: a, views)
+
+
+def put_back(caches: dict, i: int, views: dict, orig: dict):
+    """Write into layer ``i`` of the stack every leaf that a decode step
+    replaced in ``views`` (over ranks a cache sharded on its slot dim is
+    written whole, ``_ring_write_over_ranks``); otherwise the views were
+    written in place and nothing is replaced."""
+    for k, v in views.items():
+        if isinstance(v, dict):
+            put_back(caches[k], i, v, orig[k])
+        elif v is not orig[k]:
+            caches[k] = put(caches[k], i, v)
 
 
 def cache_write(cache: dict, k_new, v_new, positions) -> dict:

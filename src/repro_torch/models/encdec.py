@@ -92,8 +92,8 @@ def decoder_fill_cross(cfg, stacked: dict, caches: dict,
     """Fill each layer's cross K/V from the encoder output, in place."""
     for i in range(_n_layers(stacked)):
         ek, ev = attn.cross_kv(_tree.index(stacked, i)["cross"], cfg, enc_out)
-        caches["cross_k"][i] = ek
-        caches["cross_v"][i] = ev
+        caches["cross_k"] = attn.put(caches["cross_k"], i, ek)
+        caches["cross_v"] = attn.put(caches["cross_v"], i, ev)
     return caches
 
 
@@ -102,10 +102,12 @@ def decoder_decode(cfg, stacked: dict, x: torch.Tensor, caches: dict,
     """One-token decode through the stacked decoder layers; the self
     caches are updated in place."""
     for i in range(_n_layers(stacked)):
-        lp, cache = _tree.index(stacked, i), _tree.index(caches, i)
+        lp = _tree.index(stacked, i)
+        cache, orig = attn.layer_views(caches, i)
         h = rms_norm(x, lp["norm_self"], cfg.norm_eps)
         y, _ = attn.gqa_decode(lp["self"], cfg, h, cache["self"], positions,
                                window=0)
+        attn.put_back(caches, i, cache, orig)
         x = x + y
         h = rms_norm(x, lp["norm_cross"], cfg.norm_eps)
         x = x + attn.cross_attention(lp["cross"], cfg, h, cache["cross_k"],

@@ -8,6 +8,7 @@ reference's ``jax.random`` draws, not the same numbers.
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor
 import torch.nn.functional as F
 
 
@@ -94,6 +95,18 @@ def mlp_apply(p: dict, x: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def _gold_logits(logits: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """``logits[..., y]``. Over ranks (a DTensor whose vocab dim may be
+    sharded) it is the masked sum over the vocab, so each rank sums its
+    own columns and only the (B, S) partials are all-reduced, as the
+    reference's vocab-parallel CE; the other terms are exact zeros."""
+    if not isinstance(logits, DTensor):
+        return torch.gather(logits, -1, y[..., None])[..., 0]
+    ids = torch.arange(logits.shape[-1], device=y.device)
+    hit = ids == y[..., None]
+    return torch.sum(torch.where(hit, logits, 0.0), dim=-1)
+
+
 def chunked_softmax_xent(hidden: torch.Tensor, unembed: torch.Tensor,
                          labels: torch.Tensor, mask: torch.Tensor, *,
                          chunk: int = 512,
@@ -115,7 +128,7 @@ def chunked_softmax_xent(hidden: torch.Tensor, unembed: torch.Tensor,
         m = mask[:, s0:s0 + chunk]
         logits = softcap((h @ w).to(torch.float32), final_softcap)
         logz = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1, y[..., None])[..., 0]
+        gold = _gold_logits(logits, y)
         tot = tot + torch.sum((logz - gold) * m)
         cnt = cnt + torch.sum(m)
     return tot / torch.clamp(cnt, min=1.0)

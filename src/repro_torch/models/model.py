@@ -45,6 +45,7 @@ from repro_torch.models import encdec, transformer
 from repro_torch.models.attention import IMPLS
 from repro_torch.models.layers import (chunked_softmax_xent, dense_init,
                                        embed_init, rms_norm, softcap)
+from repro_torch.sharding.specs import replicated_call
 
 # decode caches longer than this take a ring buffer of the sliding window
 # (or, for SSM-only models, one unused slot), as in the reference: the
@@ -72,6 +73,16 @@ class _OnMeta(TorchFunctionMode):
         kwargs.pop("generator", None)
         return func(*args, **kwargs)
 
+
+
+def _stream_labels(tokens: torch.Tensor, n_prefix: int, S: int):
+    """(B, S) labels: stream position n_prefix + t - 1 predicts tokens[t],
+    the rest 0. Written in place, so over ranks it runs on whole tokens
+    (``replicated_call``)."""
+    B, T = tokens.shape
+    labels = torch.zeros((B, S), dtype=torch.int64, device=tokens.device)
+    labels[:, n_prefix:n_prefix + T - 1] = tokens[:, 1:]
+    return labels
 
 
 class Model:
@@ -178,8 +189,7 @@ class Model:
             x = torch.cat(parts + [x], dim=1)
         S = x.shape[1]
         # stream position n_prefix + t - 1 predicts tokens[t]
-        labels = torch.zeros((B, S), dtype=torch.int64, device=self.device)
-        labels[:, n_prefix:n_prefix + T - 1] = tokens[:, 1:]
+        labels = replicated_call(_stream_labels, tokens, n_prefix, S)
         mask = torch.zeros((B, S), dtype=torch.float32, device=self.device)
         mask[:, n_prefix:n_prefix + T - 1] = 1.0
         return x, self._positions(B, S), labels, mask

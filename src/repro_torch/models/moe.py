@@ -36,8 +36,11 @@ import os
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.models.layers import dense_init
+from repro_torch.sharding.specs import (P, constrain, contiguous_stride,
+                                        replicated_call)
 
 
 def moe_init(gen: torch.Generator, cfg) -> dict:
@@ -93,15 +96,34 @@ def moe_apply(p: dict, cfg, x: torch.Tensor):
     B, S, D = x.shape
     E, K = m.num_experts, m.top_k
     T = B * S
-    dt, dev = x.dtype, x.device
+    dt = x.dtype
     xf = x.reshape(T, D)
 
     logits = xf @ p["router"].to(dt)                     # (T,E)
     w, idx, aux = router_topk(logits, K)                 # (T,K)
 
     cap = capacity(cfg, T)
-    # flatten the assignments and sort them by expert id (stable: an
-    # earlier token has priority within its expert)
+    # the sort, the scatter into the expert buffers and the gather back
+    # run on whole tensors (``replicated_call``: over ranks they have no
+    # sharding rule); the expert matmuls between them stay sharded
+    st, sw, slot, keep = replicated_call(_dispatch_plan, idx, w, E, cap)
+    buf = replicated_call(_fill_buffers, xf, st, slot, E, cap)
+
+    h = torch.bmm(buf, p["w_gate"].to(dt))
+    u = torch.bmm(buf, p["w_up"].to(dt))
+    y = torch.bmm(F.silu(h) * u, p["w_down"].to(dt))    # (E,C,D)
+
+    out = replicated_call(_combine, y, st, sw, slot, keep, T, K)
+    return out.reshape(B, S, D), aux * m.router_aux_weight
+
+
+def _dispatch_plan(idx: torch.Tensor, w: torch.Tensor, E: int, cap: int):
+    """The (T, K) assignments flattened and sorted by expert id (stable:
+    an earlier token has priority within its expert): each one's token,
+    weight, buffer slot (``E * cap`` for a dropped one) and whether it is
+    kept."""
+    T, K = idx.shape
+    dev = idx.device
     flat_e = idx.reshape(-1)                             # (T*K,)
     flat_t = torch.arange(T, device=dev).repeat_interleave(K)
     order = torch.argsort(flat_e, stable=True)
@@ -110,23 +132,28 @@ def moe_apply(p: dict, cfg, x: torch.Tensor):
     pos_in_group = torch.arange(T * K, device=dev) - group_start[se]
     keep = pos_in_group < cap
     slot = torch.where(keep, se * cap + pos_in_group, E * cap)   # overflow
+    return st, sw, slot, keep
 
-    # (E*C, D) buffers; the overflow row takes the dropped writes and goes
-    buf = torch.zeros((E * cap + 1, D), dtype=dt, device=dev)
+
+def _fill_buffers(xf: torch.Tensor, st, slot, E: int, cap: int):
+    """(E, cap, D) expert buffers; the overflow row takes the dropped
+    writes and goes."""
+    D = xf.shape[1]
+    buf = torch.zeros((E * cap + 1, D), dtype=xf.dtype, device=xf.device)
     buf[slot] = xf[st]
-    buf = buf[:-1].reshape(E, cap, D)
+    return buf[:-1].reshape(E, cap, D)
 
-    h = torch.bmm(buf, p["w_gate"].to(dt))
-    u = torch.bmm(buf, p["w_up"].to(dt))
-    y = torch.bmm(F.silu(h) * u, p["w_down"].to(dt))    # (E,C,D)
 
+def _combine(y: torch.Tensor, st, sw, slot, keep, T: int, K: int):
+    """Each token's kept expert outputs, weighted, summed in ascending
+    expert order: (T, D)."""
+    E, cap, D = y.shape
+    dt = y.dtype
     y_flat = y.reshape(E * cap, D)
     contrib = torch.where(
         keep[:, None], y_flat[torch.clamp(slot, max=E * cap - 1)]
-        * sw[:, None].to(dt), torch.zeros((), dtype=dt, device=dev))
-    # each token's K contributions, in ascending expert order
-    out = _sum_by_token(contrib, st, T, K)
-    return out.reshape(B, S, D), aux * m.router_aux_weight
+        * sw[:, None].to(dt), torch.zeros((), dtype=dt, device=y.device))
+    return _sum_by_token(contrib, st, T, K)
 
 
 def _moe_apply_grouped(p: dict, cfg, x: torch.Tensor, G: int):
@@ -134,8 +161,9 @@ def _moe_apply_grouped(p: dict, cfg, x: torch.Tensor, G: int):
     filling (E, C, D) buffers from its own tokens, with its own capacity
     ``max(8, min(int(cf * Tg * K / E), Tg))``. The aux loss is the global
     one (its means run over every group's tokens). The reference's
-    sharding constraints on the data and model axes are not taken: they
-    place nothing on one card."""
+    constraints (groups over "data", expert buffers over "data" and
+    "model") apply inside ``mesh_scope``; with no mesh they are the
+    identity."""
     m = cfg.moe
     B, S, D = x.shape
     E, K = m.num_experts, m.top_k
@@ -143,13 +171,53 @@ def _moe_apply_grouped(p: dict, cfg, x: torch.Tensor, G: int):
     if T % G:
         raise ValueError(f"{G} token groups do not divide {T} tokens")
     Tg = T // G
-    dt, dev = x.dtype, x.device
-    xg = x.reshape(G, Tg, D)
+    dt = x.dtype
+    xg = constrain(x.reshape(G, Tg, D), P("data", None, None))
 
     logits = xg @ p["router"].to(dt)                     # (G,Tg,E)
     w, idx, aux = router_topk(logits.reshape(T, E), K)   # (T,K)
 
     cap = max(8, min(int(m.capacity_factor * Tg * K / E), Tg))
+    st, sw, slot, keep = replicated_call(_grouped_plan, idx, w, G, E, cap)
+    buf = constrain(replicated_call(_grouped_fill, xg, st, slot, E, cap),
+                    P("data", "model", None, None))
+
+    h = _experts("gecd,edf->gecf", buf, p["w_gate"].to(dt))
+    u = _experts("gecd,edf->gecf", buf, p["w_up"].to(dt))
+    y = _experts("gecf,efd->gecd", F.silu(h) * u, p["w_down"].to(dt))
+    y = constrain(y, P("data", "model", None, None))
+
+    out = constrain(replicated_call(_grouped_combine, y, st, sw, slot, keep,
+                                    K), P("data", None, None))
+    return out.reshape(B, S, D), aux * m.router_aux_weight
+
+
+def _experts(eq: str, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``einsum(eq, x, w)`` of (G, E, C, .) buffers with (E, ., .) expert
+    weights. Over ranks each rank multiplies its own groups and experts
+    (the buffers' placement; the weights gathered to match), so the
+    expert compute is local, as the reference's constraints make it."""
+    if not isinstance(x, DTensor):
+        return torch.einsum(eq, x, w)
+    mesh = x.device_mesh
+    if any(not isinstance(p, (Shard, Replicate)) or
+           (isinstance(p, Shard) and p.dim > 1) for p in x.placements):
+        raise ValueError(f"expert buffers placed {x.placements}: groups "
+                         "and experts only")
+    w_pl = [Shard(0) if isinstance(p, Shard) and p.dim == 1 else Replicate()
+            for p in x.placements]
+    out = torch.einsum(eq, x.to_local(), w.redistribute(mesh, w_pl).to_local())
+    shape = tuple(x.shape[:3]) + (w.shape[-1],)
+    return DTensor.from_local(out, mesh, x.placements, run_check=False,
+                              shape=shape, stride=contiguous_stride(shape))
+
+
+def _grouped_plan(idx: torch.Tensor, w: torch.Tensor, G: int, E: int,
+                  cap: int):
+    """``_dispatch_plan`` within each of G token groups: (G, Tg*K)."""
+    T, K = idx.shape
+    Tg = T // G
+    dev = idx.device
     flat_e = idx.reshape(G, Tg * K)
     flat_t = torch.arange(Tg, device=dev).repeat_interleave(K).expand(
         G, Tg * K)
@@ -164,20 +232,27 @@ def _moe_apply_grouped(p: dict, cfg, x: torch.Tensor, G: int):
         group_start, 1, se)
     keep = pos < cap
     slot = torch.where(keep, se * cap + pos, E * cap)
+    return st, sw, slot, keep
 
-    g_idx = torch.arange(G, device=dev)[:, None]
-    buf = torch.zeros((G, E * cap + 1, D), dtype=dt, device=dev)
+
+def _grouped_fill(xg: torch.Tensor, st, slot, E: int, cap: int):
+    """(G, E, cap, D) buffers, group by group."""
+    G, _, D = xg.shape
+    g_idx = torch.arange(G, device=xg.device)[:, None]
+    buf = torch.zeros((G, E * cap + 1, D), dtype=xg.dtype, device=xg.device)
     buf[g_idx, slot] = xg[g_idx, st]
-    buf = buf[:, :-1].reshape(G, E, cap, D)
+    return buf[:, :-1].reshape(G, E, cap, D)
 
-    h = torch.einsum("gecd,edf->gecf", buf, p["w_gate"].to(dt))
-    u = torch.einsum("gecd,edf->gecf", buf, p["w_up"].to(dt))
-    y = torch.einsum("gecf,efd->gecd", F.silu(h) * u, p["w_down"].to(dt))
 
+def _grouped_combine(y: torch.Tensor, st, sw, slot, keep, K: int):
+    """(G, Tg, D): ``_combine`` within each group."""
+    G, E, cap, D = y.shape
+    dt = y.dtype
+    Tg = st.shape[1] // K
+    g_idx = torch.arange(G, device=y.device)[:, None]
     y_flat = y.reshape(G, E * cap, D)
     gathered = y_flat[g_idx, torch.clamp(slot, max=E * cap - 1)]
     contrib = torch.where(keep[..., None], gathered * sw[..., None].to(dt),
-                          torch.zeros((), dtype=dt, device=dev))
-    out = torch.stack([_sum_by_token(contrib[g], st[g], Tg, K)
-                       for g in range(G)])
-    return out.reshape(B, S, D), aux * m.router_aux_weight
+                          torch.zeros((), dtype=dt, device=y.device))
+    return torch.stack([_sum_by_token(contrib[g], st[g], Tg, K)
+                        for g in range(G)])

@@ -11,12 +11,15 @@ no counterpart here.
 """
 from __future__ import annotations
 
+import os
+
 import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.kernels.ssd_scan.ref import ssd_chunked
 from repro_torch.models.layers import dense_init, rms_norm
+from repro_torch.sharding.specs import P, constrain
 
 
 def ssm_init(gen: torch.Generator, cfg) -> dict:
@@ -100,10 +103,24 @@ def _scan_output(p: dict, cfg, y, xh, z, dtype) -> torch.Tensor:
     return y @ p["out_proj"].to(dtype)
 
 
+def _ssm_shard(xh, B, C, z):
+    """ssm_shard variant (``REPRO_SSM_SHARD=1``): the heads over "model",
+    B and C (the small state projections) replicated, on the mesh in
+    scope; the identity otherwise. The reference takes it in the forward
+    only, not in the prefill."""
+    if os.environ.get("REPRO_SSM_SHARD") != "1":
+        return xh, B, C, z
+    return (constrain(xh, P("data", None, "model", None)),
+            constrain(B, P("data", None, None)),
+            constrain(C, P("data", None, None)),
+            constrain(z, P("data", None, "model")))
+
+
 def ssm_forward(p: dict, cfg, x: torch.Tensor, *,
                 impl: str = "xla") -> torch.Tensor:
     """Full-sequence Mamba2 block. x: (B,S,D) -> (B,S,D)."""
     z, _, xh, B, C, dt, A = _scan_inputs(p, cfg, x)
+    xh, B, C, z = _ssm_shard(xh, B, C, z)
     y, _ = _scan(cfg, xh, dt, A, B, C, impl)
     return _scan_output(p, cfg, y, xh, z, x.dtype)
 

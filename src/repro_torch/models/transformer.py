@@ -12,6 +12,8 @@ leading (L,) axis; ``stack_decode`` updates them in place.
 """
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
 
@@ -22,6 +24,7 @@ from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import mlp_apply, mlp_init, rms_norm
+from repro_torch.sharding.specs import P, constrain
 
 
 def _has_attn(cfg) -> bool:
@@ -74,10 +77,20 @@ def _ffn(cfg, p: dict, x: torch.Tensor):
     return x, None
 
 
+def _seq_shard(x: torch.Tensor) -> torch.Tensor:
+    """seqpar variant (``REPRO_SEQ_SHARD=1``): the residual stream
+    constrained to (batch: data, seq: model) between blocks, Megatron
+    sequence parallelism, on the mesh in scope; the identity otherwise."""
+    if os.environ.get("REPRO_SEQ_SHARD") != "1" or x.dim() != 3:
+        return x
+    return constrain(x, P("data", "model", None))
+
+
 def block_apply(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor,
                 window: int, *, impl: str = "xla"):
     """Full-sequence block. Returns (x, aux_loss)."""
     kind = cfg.block_kind
+    x = _seq_shard(x)
     h = rms_norm(x, p["norm_attn"], cfg.norm_eps)
     if kind == BLOCK_SSM:
         x = x + ssm_mod.ssm_forward(p["ssm"], cfg, h, impl=impl)
@@ -94,7 +107,7 @@ def block_apply(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor,
     x, aux = _ffn(cfg, p, x)
     if aux is None:
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return x, aux
+    return _seq_shard(x), aux
 
 
 def block_cache_init(cfg, batch: int, cache_len: int, dtype,
@@ -192,8 +205,10 @@ def stack_decode(cfg, stacked: dict, x: torch.Tensor, caches: dict,
     """caches: tree with leading (L,) axis, updated in place. Returns
     (x, caches)."""
     for i, w in enumerate(np.asarray(windows).tolist()):
-        x, _ = block_decode(cfg, _tree.index(stacked, i), x,
-                            _tree.index(caches, i), positions, int(w))
+        views, orig = attn.layer_views(caches, i)
+        x, _ = block_decode(cfg, _tree.index(stacked, i), x, views,
+                            positions, int(w))
+        attn.put_back(caches, i, views, orig)
     return x, caches
 
 

@@ -48,7 +48,9 @@ def clip_by_global_norm(grads, max_norm: float):
 
 
 def _f32_zeros(p):
-    return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    # zeros_like keeps a DTensor's placement: the moments are sharded as
+    # their parameter is
+    return torch.zeros_like(p, dtype=torch.float32)
 
 
 def adamw(lr, *, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,

@@ -22,9 +22,11 @@ The reference's rules:
 The result lies on the mesh's first device, whichever device the inputs
 were on. A mesh may name one device several times
 (``agg_mesh([cuda:0] * 2)``): the split then runs on one card, which is
-how a one-card host exercises it. The streaming sinks do not call these
-ops yet (``core/streaming.py``): on one card the split is slower than
-the unsplit launch, and across cards it is not measured.
+how a one-card host exercises it. The streaming sinks take such a mesh
+(``core/streaming.py``, ``mesh=``): they keep one accumulator slab a
+shard (``masked_sum_slabs``, ``dequant_reduce_slabs``) and gather at
+finalize. ``mesh="auto"`` there is ``agg_mesh()``, so one card runs the
+unsplit kernels.
 """
 from __future__ import annotations
 
@@ -83,21 +85,25 @@ def _split(mesh: Mesh, t: int, granule: int):
     return [(d, i * width, (i + 1) * width) for i, d in enumerate(devs)]
 
 
-def _gather(outs, t: int) -> torch.Tensor:
+def gather(outs, t: int) -> torch.Tensor:
     """The shards' results, concatenated on the first shard's device and
     cut back to T."""
     dev = outs[0].device
     return torch.cat([o.to(dev) for o in outs])[:t]
 
 
-def sharded_masked_sum(x, weights, *, mesh: Mesh) -> torch.Tensor:
-    """(N, T) f32 x (N,) f32 -> (T,) f32, K1 once a shard."""
+def masked_sum_slabs(x, weights, *, mesh: Mesh) -> list:
+    """K1 once a shard: each shard's (width,) f32 result on its device,
+    over T zero-padded to the shards' widths."""
     x = torch.as_tensor(x, dtype=torch.float32)
     w = torch.as_tensor(weights, dtype=torch.float32)
-    t = x.shape[1]
-    outs = [_sec_ops.masked_sum(_slab(x, lo, hi, hi - lo, d), w.to(d))
-            for d, lo, hi in _split(mesh, t, LANE)]
-    return _gather(outs, t)
+    return [_sec_ops.masked_sum(_slab(x, lo, hi, hi - lo, d), w.to(d))
+            for d, lo, hi in _split(mesh, x.shape[1], LANE)]
+
+
+def sharded_masked_sum(x, weights, *, mesh: Mesh) -> torch.Tensor:
+    """(N, T) f32 x (N,) f32 -> (T,) f32, K1 once a shard."""
+    return gather(masked_sum_slabs(x, weights, mesh=mesh), x.shape[1])
 
 
 def sharded_masked_sum_corrected(x, corr, weights, *,
@@ -111,7 +117,7 @@ def sharded_masked_sum_corrected(x, corr, weights, *,
     outs = [_sec_ops.masked_sum_corrected(
         _slab(x, lo, hi, hi - lo, d), _slab(c, lo, hi, hi - lo, d), w.to(d))
         for d, lo, hi in _split(mesh, t, LANE)]
-    return _gather(outs, t)
+    return gather(outs, t)
 
 
 def _check_chunked(t: int):
@@ -119,21 +125,25 @@ def _check_chunked(t: int):
         raise ValueError(f"T={t} must be a multiple of CHUNK={CHUNK}")
 
 
-def sharded_dequant_reduce(q, scales, weights, *,
-                           mesh: Mesh) -> torch.Tensor:
-    """(N, T) int8 x (N, T/CHUNK) x (N,) -> (T,) f32, K3 once a shard.
+def dequant_reduce_slabs(q, scales, weights, *, mesh: Mesh) -> list:
+    """K3 once a shard: each shard's (width,) f32 result on its device.
     T must already be a CHUNK multiple; each shard's slab stays chunk
     aligned, its scales padded with zeros."""
     q = torch.as_tensor(q, dtype=torch.int8)
     s = torch.as_tensor(scales, dtype=torch.float32)
     w = torch.as_tensor(weights, dtype=torch.float32)
-    t = q.shape[1]
-    _check_chunked(t)
-    outs = [_comp_ops.dequant_reduce(
+    _check_chunked(q.shape[1])
+    return [_comp_ops.dequant_reduce(
         _slab(q, lo, hi, hi - lo, d),
         _slab(s, lo // CHUNK, hi // CHUNK, (hi - lo) // CHUNK, d), w.to(d))
-        for d, lo, hi in _split(mesh, t, CHUNK)]
-    return _gather(outs, t)
+        for d, lo, hi in _split(mesh, q.shape[1], CHUNK)]
+
+
+def sharded_dequant_reduce(q, scales, weights, *,
+                           mesh: Mesh) -> torch.Tensor:
+    """(N, T) int8 x (N, T/CHUNK) x (N,) -> (T,) f32, K3 once a shard."""
+    return gather(dequant_reduce_slabs(q, scales, weights, mesh=mesh),
+                   q.shape[1])
 
 
 def _bits(z) -> torch.Tensor:
@@ -165,4 +175,4 @@ def sharded_masked_dequant_reduce(z, scales, *, modulus_bits: int,
             _slab(s, lo // CHUNK, hi // CHUNK, w // CHUNK, d),
             modulus_bits=int(modulus_bits),
             corr=None if c is None else _slab(c, lo, hi, w, d)))
-    return _gather(outs, t)
+    return gather(outs, t)

@@ -12,11 +12,13 @@ The rules are the reference's, leaf for leaf:
   * every rule falls back to replication when a dim does not divide.
 
 A spec is a ``PartitionSpec``: a tuple of axis names and ``None``, one
-entry a dim, as the reference's. Placement (``to_shardings``,
-``constrain``) puts tensors on the mesh's device when the mesh has one
-device. Placing a leaf across more than one card (split or replicated) is
-the multi-card work of ROADMAP queue A ("cross-card parameter placement")
-and raises ``NotImplementedError``.
+entry a dim, as the reference's. On a mesh over ranks (``launch/mesh.py``)
+``place`` / ``to_shardings`` make each leaf a ``DTensor``: an axis named
+at dim d is ``Shard(d)``, every other axis ``Replicate()``; ``constrain``
+redistributes a ``DTensor`` inside ``mesh_scope(mesh)`` (the reference's
+``with mesh:``). On a mesh of one device they move tensors to it. A device
+list in one process over several cards cannot hold a leaf (``ValueError``):
+that needs ranks.
 """
 from __future__ import annotations
 
@@ -25,15 +27,13 @@ from dataclasses import dataclass
 import torch
 
 from repro_torch import tree as _tree
+from repro_torch.sharding.mesh import current_mesh
 
 # param-name -> (tp_dim, fsdp_dim) counted from the *end* of the shape
 # (so stacked (L, ...) leading axes are ignored)
 _UP = {"wq", "wk", "wv", "w_gate", "w_up", "in_proj", "router", "w_dq",
        "w_uq", "w_dkv", "w_uk", "w_uv", "frontend_proj", "unembed"}
 _DOWN = {"wo", "w_down", "out_proj"}
-
-CROSS_CARD = ("cross-card parameter placement (ROADMAP queue A: needs "
-              "more than one card)")
 
 
 class PartitionSpec(tuple):
@@ -134,43 +134,128 @@ def cache_pspecs(cache_like, mesh, *, batch: int):
     return _tree.tree_map(spec, cache_like)
 
 
-def _one_device(mesh) -> torch.device:
-    """The mesh's device; raises unless every position holds the same
-    one."""
+def placements(spec, mesh) -> list:
+    """The DTensor placements of ``spec`` on ``mesh``, one a mesh axis: an
+    axis that the spec names at tensor dim d is ``Shard(d)``, every other
+    axis ``Replicate()``. A tuple of axes on one dim shards it over each,
+    major to minor, which must be the mesh's own order."""
+    from torch.distributed.tensor import Replicate, Shard
+    out = [Replicate()] * len(mesh.axis_names)
+    for d, entry in enumerate(spec):
+        axes = entry if isinstance(entry, tuple) else (entry,)
+        axes = tuple(a for a in axes if a is not None)
+        idx = []
+        for a in axes:
+            if a not in mesh.axis_names:
+                raise ValueError(f"axis {a!r} is not in {mesh}")
+            idx.append(mesh.axis_names.index(a))
+        if idx != sorted(idx):
+            raise ValueError(f"axes {axes} are not in the order of {mesh}")
+        for i in idx:
+            if not isinstance(out[i], Replicate):
+                raise ValueError(f"axis {mesh.axis_names[i]!r} shards two "
+                                 f"dims in {spec}")
+            out[i] = Shard(d)
+    return out
+
+
+def _check_axes(spec, mesh, ndim: int):
+    if len(spec) > ndim:
+        raise ValueError(
+            f"spec {spec} has more dims than a {ndim}-d leaf")
+    for axis in spec:
+        for a in (axis if isinstance(axis, tuple) else (axis,)):
+            if a is not None and a not in mesh.axis_names:
+                raise ValueError(f"axis {a!r} is not in {mesh}")
+
+
+def _device_of(mesh) -> torch.device:
+    """The one device of a device-list mesh; a list over several cards
+    cannot hold a leaf: that needs a mesh of ranks."""
     if mesh.is_abstract:
         raise ValueError(f"{mesh} is abstract: it places nothing")
     devs = {str(d) for d in mesh.device_list}
     if len(devs) > 1:
-        raise NotImplementedError(
-            f"{mesh} spans {len(devs)} cards: {CROSS_CARD}")
+        raise ValueError(
+            f"{mesh} lists {len(devs)} devices in one process: placing a "
+            "leaf across cards needs a mesh over ranks (make_host_mesh "
+            "after init_ranks)")
     return mesh.device_list[0]
 
 
 @dataclass(frozen=True)
 class NamedSharding:
-    """A spec on a mesh; ``place`` puts a tensor where the spec says."""
+    """A spec on a mesh. On a mesh over ranks ``place`` makes the leaf a
+    ``DTensor`` with ``placements(spec)``; on a one-device mesh it moves
+    the leaf to that device."""
     mesh: object
     spec: PartitionSpec
 
     @property
-    def device(self) -> torch.device:
-        return _one_device(self.mesh)
+    def placements(self) -> list:
+        return placements(self.spec, self.mesh)
+
+    def shard_shape(self, shape) -> tuple:
+        """The local shape of a leaf of global ``shape`` (the reference's
+        ``NamedSharding.shard_shape``: each named axis divides its dim)."""
+        out = list(shape)
+        for d, entry in enumerate(self.spec):
+            for a in (entry if isinstance(entry, tuple) else (entry,)):
+                if a is not None:
+                    n = self.mesh.shape[a]
+                    if out[d] % n:
+                        raise ValueError(f"dim {d} of {tuple(shape)} does "
+                                         f"not divide over {a!r} ({n})")
+                    out[d] //= n
+        return tuple(out)
 
     def place(self, x) -> torch.Tensor:
+        """The whole leaf ``x`` (the same on every rank) placed: each rank
+        keeps its own shard, no collective."""
+        from torch.distributed.tensor import DTensor, distribute_tensor
+        if isinstance(x, DTensor):
+            return self.constrain(x)
         x = torch.as_tensor(x)
-        if len(self.spec) > x.dim():
-            raise ValueError(
-                f"spec {self.spec} has more dims than a {x.dim()}-d leaf")
-        for axis in self.spec:
-            for a in (axis if isinstance(axis, tuple) else (axis,)):
-                if a is not None and a not in self.mesh.axis_names:
-                    raise ValueError(f"axis {a!r} is not in {self.mesh}")
-        return x.to(self.device)
+        _check_axes(self.spec, self.mesh, x.dim())
+        if self.mesh.device_mesh is None:
+            return x.to(_device_of(self.mesh))
+        if x.device.type != "meta":
+            x = x.to(self.mesh.local_device)
+        return distribute_tensor(x, self.mesh.device_mesh, self.placements,
+                                 src_data_rank=None)
+
+    def from_local(self, local: torch.Tensor, shape) -> torch.Tensor:
+        """A ``DTensor`` of global ``shape`` from this rank's ``local``
+        shard, when each rank builds only its own."""
+        from torch.distributed.tensor import DTensor
+        if tuple(local.shape) != self.shard_shape(shape):
+            raise ValueError(f"local shard {tuple(local.shape)} is not "
+                             f"{self.shard_shape(shape)} of {tuple(shape)}")
+        return DTensor.from_local(local, self.mesh.device_mesh,
+                                  self.placements, run_check=False,
+                                  shape=torch.Size(shape),
+                                  stride=contiguous_stride(shape))
+
+    def constrain(self, x):
+        """A ``DTensor`` redistributed to this spec (collectives as
+        needed)."""
+        _check_axes(self.spec, self.mesh, x.dim())
+        return x.redistribute(self.mesh.device_mesh, self.placements)
+
+
+def contiguous_stride(shape) -> tuple:
+    stride, acc = [], 1
+    for n in reversed(tuple(shape)):
+        stride.append(acc)
+        acc *= n
+    return tuple(reversed(stride))
 
 
 def to_shardings(pspecs, mesh):
-    """``NamedSharding`` tree for a ``PartitionSpec`` tree."""
-    _one_device(mesh)
+    """``NamedSharding`` tree for a ``PartitionSpec`` tree; the mesh must
+    hold leaves (over ranks or one device)."""
+    if mesh.device_mesh is None:
+        _device_of(mesh)
     return _tree.tree_map(lambda s: NamedSharding(mesh, s), pspecs)
 
 
@@ -180,9 +265,43 @@ def place(tree, shardings):
 
 
 def constrain(x, spec: PartitionSpec, mesh=None):
-    """The reference's ``with_sharding_constraint``: the identity when no
-    mesh is given (as the reference's degrades without a mesh in scope),
-    else ``x`` placed on the mesh."""
+    """The reference's ``with_sharding_constraint``. ``mesh`` defaults to
+    the one in ``mesh_scope``; with none it is the identity, as the
+    reference's degrades without a mesh in scope. On a mesh over ranks a
+    ``DTensor`` is redistributed to ``spec`` and a plain tensor (not part
+    of the sharded program) is left as it is; on a one-device mesh ``x``
+    moves to that device."""
+    from torch.distributed.tensor import DTensor
+    mesh = current_mesh() if mesh is None else mesh
     if mesh is None:
         return x
-    return NamedSharding(mesh, P(*spec)).place(x)
+    sh = NamedSharding(mesh, P(*spec))
+    if mesh.device_mesh is not None:
+        return sh.constrain(x) if isinstance(x, DTensor) else x
+    return sh.place(x)
+
+
+def replicated_call(fn, *args):
+    """``fn(*args)`` on whole tensors. With ``DTensor`` arguments (an op
+    that has no sharding rule, or none that keeps its inputs' placement:
+    the MoE dispatch's sort and scatter, the loss's labels, a ring write
+    into a cache sharded on its slots) each
+    is redistributed to ``Replicate()`` first (an all-gather where it is
+    sharded, an all-reduce where it is partial) and ``fn`` runs on the
+    local copies; its tensor results come back as replicated ``DTensor``s
+    on the same mesh, so the program stays one over ranks. With plain
+    arguments it is ``fn(*args)``."""
+    from torch.distributed.tensor import DTensor, Replicate
+    from torch.utils._pytree import tree_leaves, tree_map
+    mesh = next((a.device_mesh for a in tree_leaves(args)
+                 if isinstance(a, DTensor)), None)
+    if mesh is None:
+        return fn(*args)
+    whole = [Replicate()] * mesh.ndim
+    local = tree_map(lambda a: a.redistribute(mesh, whole).to_local()
+                     if isinstance(a, DTensor) else a, args)
+    out = fn(*local)
+    return tree_map(lambda t: DTensor.from_local(t, mesh, whole,
+                                                 run_check=False)
+                    if isinstance(t, torch.Tensor) else t, out)
+

@@ -7,8 +7,9 @@ that no mesh divides, so the zero padding must be an exact identity: K1,
 K2 and K3 within 1e-5 of the port's unsplit op and of the reference's
 (its interpret-mode path), K4 bitwise, and chunk-unaligned T rejected.
 (The reference's own versions need several JAX devices and skip in a
-one-device run.) The sinks take no mesh in the port; the split of the
-rows a sink folds equals what the sink finalizes, bitwise: each column
+one-device run.) The split of the rows an unsplit sink folds equals
+what that sink finalizes, bitwise (the sinks over a mesh are
+``tests/test_torch_mesh_sinks.py``'s): each column
 sums its rows in the same order split or not, and the modular decode is
 integer.
 """

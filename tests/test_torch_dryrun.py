@@ -16,8 +16,10 @@ against the JAX package's.
   peak equal those of the same step on real CPU tensors.
 * The artifact's keys equal the reference's (read from its source);
   ``benchmarks/roofline.py`` renders it; ``--multi-pod``, a mesh over
-  more than one card and the mesh-only variants raise; ``moe_grouped``,
-  ``fedavg_sync`` and ``fedavg_q8`` run.
+  more than one card and the mesh-only variants run over fake ranks
+  (``tests/test_torch_mesh_dryrun.py`` holds the mesh runs in full);
+  rank 0's FLOPs count its local ops; ``moe_grouped``, ``fedavg_sync``
+  and ``fedavg_q8`` run.
 """
 import ast
 import functools
@@ -29,6 +31,7 @@ from types import SimpleNamespace
 
 import pytest
 import torch
+import torch.distributed as dist
 
 import jax
 
@@ -345,20 +348,85 @@ def test_main_writes_and_skips_existing(tmp_path, capsys):
     assert "[skip-existing]" in capsys.readouterr().out
 
 
+def _main_multi_pod(tmp):
+    dryrun.main(["--arch", "fedforecast-100m", "--shape", "decode_32k",
+                 "--multi-pod", "--out", str(tmp)])
+    return json.loads((tmp / "fedforecast-100m__decode_32k__h100x2x16x16"
+                       ".json").read_text())
+
+
+def _on_fake_mesh(sizes, names, build):
+    """``build(mesh)``'s ``(mesh, fn, args)`` counted in a fake world of
+    the mesh's size: the record's keys as ``count`` gives them."""
+    with dryrun.fake_world(int(torch.tensor(sizes).prod())):
+        mesh, fn, args = build(Mesh(sizes, names))
+        assert mesh.device_mesh is not None and mesh.size > 1
+        return dryrun.count(fn, args)
+
+
+def _small(arch, mode):
+    return tget(arch).reduced(), InputShape(mode, 64, 8, mode)
+
+
 @pytest.mark.parametrize("call", [
-    lambda: dryrun.main(["--all", "--multi-pod"]),
-    lambda: dryrun.run_one("fedforecast-100m", "train_4k", multi_pod=True),
-    lambda: dryrun.build_dryrun("fedforecast-100m", "train_4k",
-                                mesh=Mesh((2, 1), ("data", "model"))),
-    lambda: variants.build_variant("gemma2-9b", "train_4k", "seqpar"),
-    lambda: variants.build_variant("gemma2-9b", "decode_32k", "tree_decode"),
-    lambda: variants.build_variant("mamba2-780m", "prefill_32k",
-                                   "ssm_shard"),
+    _main_multi_pod,
+    lambda tmp: dryrun.run_one("fedforecast-100m", "train_4k",
+                               multi_pod=True, out_dir=str(tmp),
+                               verbose=False),
+    lambda tmp: _on_fake_mesh((2, 1), ("data", "model"),
+                              lambda m: dryrun.build_dryrun(
+                                  "fedforecast-100m", "train_4k", mesh=m)),
+    lambda tmp: _on_fake_mesh((2, 4), ("data", "model"),
+                              lambda m: variants.build_variant(
+                                  *_small("gemma2-9b", "train"), "seqpar",
+                                  mesh=m)),
+    lambda tmp: _on_fake_mesh((2, 4), ("data", "model"),
+                              lambda m: variants.build_variant(
+                                  *_small("gemma2-9b", "decode"),
+                                  "tree_decode", mesh=m)),
+    lambda tmp: _on_fake_mesh((2, 4), ("data", "model"),
+                              lambda m: variants.build_variant(
+                                  *_small("mamba2-780m", "prefill"),
+                                  "ssm_shard", mesh=m)),
 ], ids=["main-multi-pod", "run_one-multi-pod", "two-card-mesh", "seqpar",
         "tree_decode", "ssm_shard"])
-def test_more_than_one_card_raises(call):
-    with pytest.raises(NotImplementedError):
-        call()
+def test_more_than_one_card_raises(call, tmp_path):
+    """These raised ``NotImplementedError`` while the dry run covered one
+    card; each now runs over a mesh of fake ranks (meta tensors) and
+    records its collectives. The multi-pod ones are the production
+    (2, 16, 16) mesh at full size: a decode serves B requests a pod, a
+    train step stacks the silos over "pod" and crosses no pod."""
+    rec = call(tmp_path)
+    coll = rec["collectives"]
+    assert coll["count"] > 0 and coll["ici_bytes"] > 0
+    if "status" in rec:
+        assert rec["status"] == "ok" and rec["mesh"] == "h100x2x16x16"
+        assert rec["n_devices"] == 512 and coll["dcn_bytes"] == 0
+        assert rec["roofline"]["collective_s"] > 0
+    assert not dist.is_initialized()
+
+
+def test_local_flops_count_rank_zero_share():
+    """``FlopCounterMode`` around a DTensor matmul counts the global op;
+    the dry run's ``LocalFlops`` counts rank 0's local product. On the
+    (16, 16) fake mesh, a (64, 4096) batch over "data" times a (4096,
+    8192) weight over "model": rank 0 multiplies (4, 4096) by (4096, 512),
+    2 * 4 * 4096 * 512 FLOPs, 1/256 of the global 2 * 64 * 4096 * 8192."""
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.sharding.specs import NamedSharding, P
+    with dryrun.fake_world(256):
+        mesh = make_production_mesh()
+        a = NamedSharding(mesh, P("data", None)).place(
+            torch.empty(64, 4096, device="meta"))
+        b = NamedSharding(mesh, P(None, "model")).place(
+            torch.empty(4096, 8192, device="meta"))
+        with FlopCounterMode(display=False) as whole:
+            a @ b
+        counts = dryrun.count(lambda x, y: x @ y, (a, b))
+    assert whole.get_total_flops() == 2 * 64 * 4096 * 8192 == 4294967296
+    assert counts["flops"] == 2 * 4 * 4096 * 512 == 16777216
+    assert counts["argument_bytes"] == 4 * (4 * 4096 + 4096 * 512)
 
 
 def test_unknown_variant_raises():

@@ -11,8 +11,9 @@ the JAX package's.
   ``data.pipeline.batch_pspec`` equal to the reference's on
   ``jax.sharding.AbstractMesh`` meshes of (2, 4), (2, 2, 2), (16, 16) and
   (2, 16, 16), with the port's abstract ``Mesh`` of the same axes.
-* the placement on a one-device mesh, and the raise on a mesh over more
-  than one card.
+* the placement on a one-device mesh, the ``ValueError`` of a device
+  list over more than one card in one process, and the same axes over a
+  gloo world of ranks.
 """
 import numpy as np
 import pytest
@@ -182,11 +183,32 @@ def test_one_device_mesh_places_and_constrain_degrades():
     assert batch_pspec(mesh, batch) == {"tokens": P(("pod", "data"), None)}
 
 
-def test_a_mesh_over_several_cards_raises():
+def _two_rank_placement(rank, world):
+    from repro_torch.sharding.specs import NamedSharding
+    mesh = make_host_mesh(2, 1)                    # over the group's ranks
+    w = torch.arange(12, dtype=torch.float32).reshape(4, 3)
+    sh = to_shardings({"w": P("data", None)}, mesh)["w"]
+    assert isinstance(sh, NamedSharding)
+    leaf = place({"w": w}, {"w": sh})["w"]
+    return {"local": leaf.to_local().tolist(),
+            "whole": torch.equal(leaf.full_tensor(), w),
+            "over_ranks": mesh.device_mesh is not None}
+
+
+def test_a_mesh_over_several_cards_raises(tmp_path):
+    """A device list over several cards in one process cannot hold a
+    leaf (``ValueError``: that needs ranks); the same axes over a gloo
+    world of two ranks place it, each rank its half."""
+    from test_torch_mesh_world import run_world
     mesh = make_host_mesh(2, 1, devices=["cuda:0", "cuda:1"])
-    with pytest.raises(NotImplementedError, match="cross-card"):
+    with pytest.raises(ValueError, match="mesh over ranks"):
         to_shardings({"w": P("data", None)}, mesh)
     # the same device twice is one card
     mesh = make_host_mesh(2, 1, devices=["cpu", "cpu"])
-    assert to_shardings({"w": P("data", None)}, mesh)["w"].device.type == \
-        "cpu"
+    assert to_shardings({"w": P("data", None)}, mesh)["w"].mesh is mesh
+    assert place({"w": torch.ones(2)}, to_shardings(
+        {"w": P("data")}, mesh))["w"].device.type == "cpu"
+    w = np.arange(12, dtype=np.float32).reshape(4, 3)
+    for rank, r in enumerate(run_world(_two_rank_placement, 2, tmp_path)):
+        assert r["over_ranks"] and r["whole"]
+        assert r["local"] == w[2 * rank:2 * rank + 2].tolist()
