@@ -3,6 +3,10 @@
 
     python3 chip_smoke.py
 
+``python3 chip_smoke.py --remat-only [--src DIR]`` runs phase 5a alone
+(no kernel built, no result line), on this checkout's package or on the
+one under ``DIR``: two checkouts' train steps in one call.
+
 Phases (every failed check exits non-zero):
 
 1. Environment: the card's name and power limit (``nvidia-smi``), torch
@@ -28,6 +32,18 @@ Phases (every failed check exits non-zero):
 5. Dropout repair at full width: ``solarx`` drops after masking; the
    survivors' corrections are folded streamed (K1) and combined stacked
    (K2); both must equal the plain survivor sum.
+5a. ``remat``: the round's train step (full-width ``fedforecast-100m``,
+   8 x 256, AdamW) on the new global and phase 4's batch at
+   ``remat=True`` (phase 4's, the reference's default: each layer body
+   checkpointed) and at ``remat=False`` (the CE and q chunks are
+   checkpointed at both). Gates: the loss bitwise equal and every
+   gradient within 1e-6 of the gradients' max-abs. Prints each setting's median step ms over ``REMAT_REPS``
+   steps, the peak GiB of a step above what it was given, the loss and
+   the largest gradient difference; then, a setting a line, the step
+   split into forward and backward, one traced step (device busy ms,
+   kernel launches, operator calls), the allocator's new segments and
+   the pod step (two silos stacked) at that setting. No kernel launches
+   (``impl="xla"``).
 5b. ``fl run``: the FL-APU sync run end to end through the port's
    control plane, at full width: ``Consortium`` (the silos of phase 4,
    ``device`` the card, phase 4's init injected as the server's initial
@@ -259,7 +275,10 @@ from pathlib import Path
 from types import SimpleNamespace
 
 ROOT = Path(__file__).resolve().parent
-sys.path.insert(0, str(ROOT / "src"))
+# ``--src DIR`` (with ``--remat-only``): the package of another checkout
+SRC = (Path(sys.argv[sys.argv.index("--src") + 1]).resolve()
+       if "--src" in sys.argv else ROOT / "src")
+sys.path.insert(0, str(SRC))
 
 from repro_torch.kernels.timing import (  # noqa: E402
     device_ms_by_kernel, median_ms)
@@ -1737,6 +1756,8 @@ def agg_split_phase(state, device, card: str) -> dict:
     return {k: v for k, v in tally.items() if v}
 
 
+REMAT_REPS = 9              # timed train steps a remat setting
+REMAT_GRAD_TOL = 1e-6       # of the gradients' max-abs
 MESH_SHARDS = 2             # the sinks' device mesh: [card] * 2
 MESH_REPS = 3               # timed fold + finalize runs a sink and mesh
 MESH_POD_ULPS = 1.0         # the DTensor pod run vs the one-card run
@@ -1930,6 +1951,149 @@ def mesh_phase(state, one_card: dict, device, card: str,
 # ---------------------------------------------------------------------------
 # phase 6: the compressed planes, on the round's trained silos
 # ---------------------------------------------------------------------------
+def traced_ops(fn, *args):
+    """One call of ``fn`` under ``torch.profiler``: (device busy ms,
+    kernel launches, operator calls on the host)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        sync_seconds(fn, *args)
+    events = prof.key_averages()
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    check(busy_ms > 0, "the profiler saw device time")
+    return (busy_ms, sum(e.count for e in kernels),
+            sum(e.count for e in events if e.key.startswith("aten::")))
+
+
+def remat_phase(state, cfg, device, card: str):
+    """5a: the round's train step at ``remat=True`` and ``remat=False``;
+    the checkpointed step recomputes each layer's forward in the backward
+    and keeps one layer's activations at a time. Each setting's step is
+    also split into its forward and its backward, traced once (device
+    busy ms, kernel launches, operator calls) and run as the pod step
+    (``make_multipod_train_step``: two silos stacked). The two settings
+    are timed in turn, rep by rep, so that a drift of the host's speed
+    falls on both; the allocator's new segments (``cudaMalloc`` calls)
+    over the timed steps are counted."""
+    import torch
+    from repro_torch import tree as _tree
+    from repro_torch.models import build_model
+    from repro_torch.training import make_multipod_train_step, make_train_step
+    from repro_torch.training.steps import stack_silos
+
+    params, batch, opt = state["global"], state["batch"], state["opt"]
+    pod_params = stack_silos([params, params])
+    on_card = {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+    pod_batch = stack_silos([on_card, on_card])
+    got, runs = {}, {}
+    for remat in (True, False):
+        model = build_model(cfg, remat=remat, device=device)
+        leaves, treedef = _tree.flatten(params)
+        leaves = [p.detach().requires_grad_(True) for p in leaves]
+        loss, _ = model.loss_fn(_tree.unflatten(treedef, leaves), batch)
+        grads = torch.autograd.grad(loss, leaves)
+        step = make_train_step(model, opt)
+        opt_state = opt.init(params)
+        step(params, opt_state, batch)                      # warm-up
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        step(params, opt_state, batch)
+        torch.cuda.synchronize()
+        peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+        got[remat] = (loss.detach(), grads, peak,
+                      traced_ops(step, params, opt_state, batch))
+        del grads
+
+        def fwd(model=model, leaves=leaves, treedef=treedef):
+            return model.loss_fn(_tree.unflatten(treedef, leaves), batch)[0]
+
+        def fwd_bwd(fwd=fwd, leaves=leaves):
+            return torch.autograd.grad(fwd(), leaves)
+        pod = make_multipod_train_step(model, opt, 2)
+        pod_opt = opt.init(pod_params)
+        pod(pod_params, pod_opt, pod_batch)                 # warm-up
+        runs[remat] = {"step": (step, params, opt_state, batch),
+                       "forward": (fwd,), "forward+backward": (fwd_bwd,),
+                       "pod": (pod, pod_params, pod_opt, pod_batch)}
+
+    def segments():
+        return torch.cuda.memory_stats().get("segment.all.allocated", 0)
+    ms = {(r, k): [] for r in runs for k in runs[r]}
+    new = {k: 0 for k in ms}
+    for _ in range(REMAT_REPS):
+        for key in runs[True]:
+            for remat in (True, False):
+                fn, *args = runs[remat][key]
+                n = segments()
+                ms[remat, key].append(sync_seconds(fn, *args)[1] * 1e3)
+                new[remat, key] += segments() - n
+    runs.clear()
+    med = {k: statistics.median(v) for k, v in ms.items()}
+    (l1, g1, pk1, t1), (l0, g0, pk0, t0) = got[True], got[False]
+    ms1, ms0 = med[True, "step"], med[False, "step"]
+    scale = max(float(g.abs().max()) for g in g0)
+    diff = max(float((a - b).abs().max()) for a, b in zip(g1, g0))
+    check(torch.equal(l1, l0), f"remat: loss {float(l1)!r} bitwise equal "
+          f"to {float(l0)!r} without it")
+    check(diff <= REMAT_GRAD_TOL * scale,
+          f"remat: gradients within {REMAT_GRAD_TOL:g} of their max-abs "
+          f"{scale:.4g}: largest difference {diff:.4g}")
+    print(f"remat: train step (8 x 256) median {ms1:.2f} ms at remat=True, "
+          f"{ms0:.2f} ms at remat=False ({ms1 / ms0:.3f}x); peak above the "
+          f"inputs {pk1:.3f} GiB against {pk0:.3f} GiB ({pk1 / pk0:.3f}x); "
+          f"loss {float(l1):.6f} bitwise equal; largest gradient difference "
+          f"{diff:.4g} ({diff / scale:.3g} of max-abs {scale:.4g}) [{card}]",
+          flush=True)
+    for remat, (busy, launches, ops) in ((True, t1), (False, t0)):
+        step_ms, f_ms = med[remat, "step"], med[remat, "forward"]
+        b_ms = med[remat, "forward+backward"] - f_ms
+        pod_ms = med[remat, "pod"]
+        print(f"remat split: remat={remat}: forward {f_ms:.2f} ms, "
+              f"backward {b_ms:.2f} ms (medians of {REMAT_REPS}, host "
+              f"clock); traced step: device busy {busy:.2f} ms (idle share "
+              f"{1 - busy / step_ms:.3f}), {launches} kernel launches, "
+              f"{ops} operator calls ({step_ms / ops * 1e3:.2f} us of step "
+              f"a call); pod step (2 silos) median {pod_ms:.2f} ms "
+              f"({pod_ms / step_ms:.3f}x the step); step ms "
+              f"{[round(v, 2) for v in ms[remat, 'step']]}; new allocator "
+              f"segments over the timed steps {new[remat, 'step']}, pod "
+              f"steps {new[remat, 'pod']} [{card}]", flush=True)
+
+    def ratio(key):
+        return med[True, key] / med[False, key]
+    print(f"remat split: remat=True / remat=False: forward "
+          f"{ratio('forward'):.3f}x, forward+backward "
+          f"{ratio('forward+backward'):.3f}x, launches {t1[1] / t0[1]:.3f}x, "
+          f"operator calls {t1[2] / t0[2]:.3f}x, device busy "
+          f"{t1[0] / t0[0]:.3f}x, pod step {ratio('pod'):.3f}x [{card}]",
+          flush=True)
+
+
+def remat_alone(device, card: str):
+    """``--remat-only``: phase 5a alone, on a fresh full-width
+    fedforecast-100m global (seed 0) and a seeded 8 x 256 batch, with no
+    kernel built; with ``--src DIR`` on another checkout's package, so
+    two checkouts' steps are set side by side in one call."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw
+    cfg = get_config("fedforecast-100m")
+    model = build_model(cfg, device=device)
+    toks = np.random.default_rng(0).integers(0, cfg.vocab,
+                                             (BATCH_SIZE, SEQ_LEN))
+    state = {"global": model.init(model.generator(0)),
+             "batch": {"tokens": toks.astype(np.int32)},
+             "opt": adamw(LR, weight_decay=0.0)}
+    print(f"remat alone: package {SRC}", flush=True)
+    remat_phase(state, cfg, device, card)
+
+
 def host_seconds(fn, *args, **kw):
     """``(fn(*args, **kw), seconds)`` on the host clock alone."""
     t0 = time.perf_counter()
@@ -2780,6 +2944,10 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    if "--remat-only" in sys.argv:
+        remat_alone(device, card)
+        return 0
+
     from repro_torch.configs import get_config
     from repro_torch.kernels import _build
     from repro_torch.kernels.compressed_agg import ops as cops
@@ -2838,6 +3006,10 @@ def main() -> int:
     check(state["T"] == t_main, f"packed size {state['T']} == {t_main}")
     run_phase("repair", peaks, card, repair_phase, state, device, card)
     fp32 = read_path("fp32 secure", ("masked_sum", "masked_sum_corrected"))
+    reset_launches()
+    run_phase("remat", peaks, card, remat_phase, state, cfg, device, card)
+    check(not any(read_path("remat", ()).values()),
+          "the remat path launches no kernel")
     reset_launches()
     run_phase("fl run", peaks, card, fl_phase, state, device, card)
     fl = read_path("fl", ("masked_sum",))

@@ -5,8 +5,9 @@ its FLOPs, bytes, collectives and roofline terms (port of
 The reference lowers and compiles each program for a TPU mesh and reads
 XLA's cost and memory analyses and the collectives of the per-device
 HLO. The port runs the same step, the one its entry points run
-(``make_train_step`` with AdamW, or ``Model.prefill`` / ``decode_step``
-on bf16 weights, ``impl="xla"``), on the ``meta`` device, where every
+(``make_train_step`` with AdamW on a model at ``remat=True`` unless the
+caller asks otherwise, or ``Model.prefill`` / ``decode_step`` on bf16
+weights, ``impl="xla"``), on the ``meta`` device, where every
 tensor has a shape and a dtype and no storage, so it needs no card and
 allocates nothing:
 
@@ -159,7 +160,8 @@ def _serve_params(model) -> dict:
         model.abstract_params())
 
 
-def build_dryrun(arch, shape, *, multi_pod: bool = False, mesh=None):
+def build_dryrun(arch, shape, *, multi_pod: bool = False, mesh=None,
+                 remat: bool = True):
     """Returns ``(mesh, fn, args)``: ``fn(*args)`` runs one step of
     ``shape.mode`` on meta tensors.
 
@@ -170,11 +172,12 @@ def build_dryrun(arch, shape, *, multi_pod: bool = False, mesh=None):
     weights with ``cache_len_for(seq_len)`` slots; a decode runs
     ``model.decode_step`` on ``input_specs``' cache, token and position.
     ``mesh`` (a ``Mesh``) or ``multi_pod`` put the step on a mesh of
-    ranks (``_resolve_mesh``); with neither it is one card.
+    ranks (``_resolve_mesh``); with neither it is one card. ``remat``
+    is the model's (``Model``).
     """
     mesh = _resolve_mesh(mesh, multi_pod=multi_pod)
     cfg = get_config(arch) if isinstance(arch, str) else arch
-    return (mesh,) + _build(_meta_model(cfg), _shape(shape), mesh)
+    return (mesh,) + _build(_meta_model(cfg, remat), _shape(shape), mesh)
 
 
 def _build(model, shape, mesh):
@@ -184,11 +187,11 @@ def _build(model, shape, mesh):
     return _sharded_step(model, shape, mesh)
 
 
-def _meta_model(cfg):
+def _meta_model(cfg, remat: bool = True):
     """``cfg``'s model on meta, whose ``abstract_params`` tree is built
     once (seconds for the large configs) and shared by the step, the
     traffic model and the FLOP estimate."""
-    model = build_model(cfg, impl="xla", device="meta")
+    model = build_model(cfg, impl="xla", remat=remat, device="meta")
     model.abstract_params = functools.cache(model.abstract_params)
     return model
 
@@ -459,18 +462,19 @@ def model_flops_estimate(cfg, shape, *, model=None):
 
 
 def measure(arch, shape, *, variant: str = "baseline", mesh=None,
-            multi_pod: bool = False) -> dict:
+            multi_pod: bool = False, remat: bool = True) -> dict:
     """The artifact record of one (arch, shape[, variant]); ``arch`` a
     name or a ``ModelConfig``, ``shape`` a name or an ``InputShape``
     (chip_smoke.py passes the shapes it times). On one card unless
-    ``mesh`` / ``multi_pod`` name a mesh of ranks (``_resolve_mesh``)."""
+    ``mesh`` / ``multi_pod`` name a mesh of ranks (``_resolve_mesh``).
+    ``remat`` is the model's (``Model``)."""
     cfg = get_config(arch) if isinstance(arch, str) else arch
     shape = _shape(shape)
     t0 = time.time()
-    model = _meta_model(cfg)
+    model = _meta_model(cfg, remat)
     if variant == "baseline":
-        mesh, fn, args = build_dryrun(cfg, shape, multi_pod=multi_pod,
-                                      mesh=mesh)
+        mesh = _resolve_mesh(mesh, multi_pod=multi_pod)
+        fn, args = _build(model, shape, mesh)
     else:
         from repro_torch.launch import variants
         mesh, fn, args = variants.build_variant(

@@ -27,13 +27,16 @@ import os
 import torch
 from torch.distributed.tensor import (DTensor, Replicate, Shard,
                                       distribute_tensor)
+from torch.distributed.tensor._utils import \
+    compute_local_shape_and_global_offset
 
 from repro_torch import tree as _tree
 
 from repro_torch.kernels.flash_attention import ops as flash_ops
-from repro_torch.models.layers import (apply_rope, dense_init, rms_norm,
-                                       softcap)
-from repro_torch.sharding.specs import P, constrain, replicated_call
+from repro_torch.models.layers import (apply_rope, checkpointed,
+                                       dense_init, rms_norm, softcap)
+from repro_torch.sharding.specs import (P, cache_full, constrain,
+                                        replicated_call)
 
 NEG_INF = -2.3819763e38  # most-negative bf16-representable
 Q_CHUNK = 512
@@ -89,7 +92,8 @@ def attend_masked(q, k, v, *, q_pos, k_pos, k_valid, causal: bool,
                   q_chunk: int = Q_CHUNK):
     """Masked attention in q-chunks: the peak scores buffer is
     (B, H, q_chunk, Sk). A sequence that is not a whole number of chunks
-    runs as one block, as in the reference."""
+    runs as one block, as in the reference. Each chunk is checkpointed,
+    as the reference's, so the backward keeps no chunk's scores either."""
     Sq = q.shape[1]
 
     def block(q_blk, qp_blk):
@@ -100,7 +104,8 @@ def attend_masked(q, k, v, *, q_pos, k_pos, k_valid, causal: bool,
 
     if Sq <= q_chunk or Sq % q_chunk != 0:
         return block(q, q_pos)
-    return torch.cat([block(q[:, s:s + q_chunk], q_pos[:, s:s + q_chunk])
+    return torch.cat([checkpointed(block, q[:, s:s + q_chunk],
+                                   q_pos[:, s:s + q_chunk])
                       for s in range(0, Sq, q_chunk)], dim=1)
 
 
@@ -208,14 +213,14 @@ def gqa_prefill(p: dict, cfg, x: torch.Tensor, positions: torch.Tensor, *,
 # --- decode with ring-buffer cache ----------------------------------------
 def gqa_cache_init(cfg, batch: int, cache_len: int, dtype,
                    device) -> dict:
+    """Zero keys and values, positions -1; sharded by ``cache_pspecs``
+    with a mesh over ranks in scope (``cache_full``)."""
     Hkv, Dh = cfg.n_kv_heads, cfg.resolved_head_dim
+    kw = dict(device=device, batch=batch)
     return {
-        "k": torch.zeros((batch, cache_len, Hkv, Dh), dtype=dtype,
-                         device=device),
-        "v": torch.zeros((batch, cache_len, Hkv, Dh), dtype=dtype,
-                         device=device),
-        "pos": torch.full((batch, cache_len), -1, dtype=torch.int32,
-                          device=device),
+        "k": cache_full((batch, cache_len, Hkv, Dh), 0, dtype=dtype, **kw),
+        "v": cache_full((batch, cache_len, Hkv, Dh), 0, dtype=dtype, **kw),
+        "pos": cache_full((batch, cache_len), -1, dtype=torch.int32, **kw),
     }
 
 
@@ -246,12 +251,14 @@ def _write_slots(cache: dict, positions: torch.Tensor, new: dict) -> dict:
 
 
 def _ring_write_over_ranks(cache: dict, positions, new: dict) -> dict:
-    """``_ring_write`` of ``DTensor``s: each rank writes its own rows and
-    heads into its shard of the cache. A cache leaf keeps its placement
-    (a fresh plain one takes the new values', whole on the slot dim); the
-    new values and positions are redistributed to it. A cache sharded on
-    its slot dim (a long ring over "data") is written whole instead
-    (``replicated_call``: gathered, then replicated)."""
+    """``_ring_write`` of ``DTensor``s: each rank writes its own rows,
+    heads and slots into its shard of each cache leaf, and nothing is
+    gathered. A cache leaf keeps its placement (a fresh plain one takes
+    the new values', whole on the slot dim); the new values and positions
+    are redistributed to it, whole on their position dim. A leaf whose
+    slot dim is sharded (``pos``, whose innermost dim is its slots, or a
+    long ring over "data") holds slots [o, o + n) on this rank, and the
+    rank writes the (row, slot) pairs that fall there at slot - o."""
     ref = next(v for v in list(new.values()) + list(cache.values())
                if isinstance(v, DTensor))
     mesh = ref.device_mesh
@@ -263,21 +270,59 @@ def _ring_write_over_ranks(cache: dict, positions, new: dict) -> dict:
                 else Replicate() for p in like.placements]
 
     like = next((v for v in new.values() if isinstance(v, DTensor)), ref)
-    targets = {k: target(cache[k], like) for k in list(new) + ["pos"]}
-    if any(isinstance(p, Shard) and p.dim == 1
-           for pl in targets.values() for p in pl):
-        written = replicated_call(_write_slots, cache, positions, new)
-        cache.update(written)
-        return cache
-    local = {}
-    for k, pl in targets.items():
+    T = cache["pos"].shape[1]
+    for k in list(new) + ["pos"]:
+        pl = target(cache[k], like)
         if not isinstance(cache[k], DTensor):
             cache[k] = distribute_tensor(cache[k], mesh, pl,
                                          src_data_rank=None)
-        local[k] = cache[k].to_local()
-    vals = {k: _placed_local(v, mesh, targets[k]) for k, v in new.items()}
-    _write_slots(local, _placed_local(positions, mesh, targets["pos"]), vals)
+        value = positions.to(torch.int32) if k == "pos" else new[k]
+        rows = [p if isinstance(p, Shard) and p.dim == 0 else Replicate()
+                for p in pl]
+        slots = (_placed_local(positions, mesh, rows) % T).long()
+        value = _placed_local(value, mesh, [
+            Replicate() if isinstance(p, Shard) and p.dim == 1 else p
+            for p in pl])
+        shape, offset = compute_local_shape_and_global_offset(
+            cache[k].shape, mesh, pl)
+        _write_local(cache[k].to_local(), slots, value, offset[1], shape[1],
+                     T)
     return cache
+
+
+def _write_local(local: torch.Tensor, slots, value, start: int, n: int,
+                 T: int):
+    """``local[b, slots[b, j] - start] = value[b, j]`` in place, for the
+    slots in [start, start + n): a shard of n of a leaf's T slots. A row's
+    slots are distinct, so no two writes collide. A decode step (S = 1)
+    writes one slot a row, kept where it falls outside the shard; a
+    longer write (a prefill) maps each local slot to the column that
+    writes it and rewrites the shard once."""
+    B, S = slots.shape
+    b_idx = torch.arange(B, device=slots.device)
+    if start == 0 and n == T:
+        local[b_idx[:, None], slots] = value
+        return
+    s = slots - start
+    hit = (s >= 0) & (s < n)
+    if S == 1:
+        s = torch.clamp(s[:, 0], 0, n - 1)
+        old = local[b_idx, s]
+        h = hit[:, 0].reshape((B,) + (1,) * (old.dim() - 1))
+        local[b_idx, s] = torch.where(h, value[:, 0], old)
+        return
+    # each local slot's column (the overflow slot n takes the rest): an
+    # inverse map, not the hit pairs picked by a mask, since picking
+    # needs ``nonzero``, which meta tensors (the dry run) do not have
+    to = torch.where(hit, s, n)
+    col = torch.zeros((B, n + 1), dtype=torch.long, device=slots.device)
+    col.scatter_(1, to, torch.arange(S, device=slots.device).expand(B, S))
+    filled = torch.zeros((B, n + 1), dtype=torch.bool, device=slots.device)
+    filled.scatter_(1, to, hit)
+    tail = (1,) * (value.dim() - 2)
+    got = torch.gather(value, 1, col[:, :n].reshape((B, n) + tail).expand(
+        (B, n) + tuple(value.shape[2:])))
+    local.copy_(torch.where(filled[:, :n].reshape((B, n) + tail), got, local))
 
 
 def _placed_local(x, mesh, placements) -> torch.Tensor:
@@ -322,9 +367,9 @@ def layer_views(caches: dict, i: int):
 
 def put_back(caches: dict, i: int, views: dict, orig: dict):
     """Write into layer ``i`` of the stack every leaf that a decode step
-    replaced in ``views`` (over ranks a cache sharded on its slot dim is
-    written whole, ``_ring_write_over_ranks``); otherwise the views were
-    written in place and nothing is replaced."""
+    replaced in ``views`` (over ranks, a plain leaf that the write
+    distributed); otherwise the views were written in place and nothing
+    is replaced."""
     for k, v in views.items():
         if isinstance(v, dict):
             put_back(caches[k], i, v, orig[k])
@@ -453,13 +498,13 @@ def mla_self_attention(p: dict, cfg, x: torch.Tensor,
 
 def mla_cache_init(cfg, batch: int, cache_len: int, dtype, device) -> dict:
     m = cfg.mla
+    kw = dict(device=device, batch=batch)
     return {
-        "c_kv": torch.zeros((batch, cache_len, m.kv_lora_rank), dtype=dtype,
-                            device=device),
-        "k_rope": torch.zeros((batch, cache_len, m.qk_rope_dim),
-                              dtype=dtype, device=device),
-        "pos": torch.full((batch, cache_len), -1, dtype=torch.int32,
-                          device=device),
+        "c_kv": cache_full((batch, cache_len, m.kv_lora_rank), 0,
+                           dtype=dtype, **kw),
+        "k_rope": cache_full((batch, cache_len, m.qk_rope_dim), 0,
+                             dtype=dtype, **kw),
+        "pos": cache_full((batch, cache_len), -1, dtype=torch.int32, **kw),
     }
 
 

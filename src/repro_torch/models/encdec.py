@@ -13,7 +13,9 @@ import torch
 
 from repro_torch import tree as _tree
 from repro_torch.models import attention as attn
-from repro_torch.models.layers import mlp_apply, mlp_init, rms_norm
+from repro_torch.models.layers import (checkpointed, mlp_apply, mlp_init,
+                                       rms_norm)
+from repro_torch.sharding.specs import cache_full, placed_layers
 
 
 def _zeros(gen: torch.Generator, n: int) -> torch.Tensor:
@@ -34,15 +36,23 @@ def enc_block_init(gen: torch.Generator, cfg) -> dict:
     }
 
 
+def _enc_block(cfg, lp: dict, x, positions, impl: str):
+    h = rms_norm(x, lp["norm_attn"], cfg.norm_eps)
+    x = x + attn.gqa_self_attention(lp["attn"], cfg, h, positions,
+                                    window=0, causal=False, impl=impl)
+    h = rms_norm(x, lp["norm_mlp"], cfg.norm_eps)
+    return x + mlp_apply(lp["mlp"], h)
+
+
 def encoder_apply(cfg, stacked: dict, x: torch.Tensor,
-                  positions: torch.Tensor, *, impl: str = "xla"):
-    for i in range(_n_layers(stacked)):
-        lp = _tree.index(stacked, i)
-        h = rms_norm(x, lp["norm_attn"], cfg.norm_eps)
-        x = x + attn.gqa_self_attention(lp["attn"], cfg, h, positions,
-                                        window=0, causal=False, impl=impl)
-        h = rms_norm(x, lp["norm_mlp"], cfg.norm_eps)
-        x = x + mlp_apply(lp["mlp"], h)
+                  positions: torch.Tensor, *, impl: str = "xla",
+                  remat: bool = True):
+    """With ``remat`` (and autograd recording) each layer is
+    checkpointed, as the reference's scan body."""
+    for lp in placed_layers(stacked):
+        def body(x_, lp=lp):
+            return _enc_block(cfg, lp, x_, positions, impl)
+        x = checkpointed(body, x) if remat else body(x)
     return x
 
 
@@ -58,32 +68,39 @@ def dec_block_init(gen: torch.Generator, cfg) -> dict:
     }
 
 
+def _dec_block(cfg, lp: dict, x, positions, enc_out, enc_valid, impl: str):
+    h = rms_norm(x, lp["norm_self"], cfg.norm_eps)
+    x = x + attn.gqa_self_attention(lp["self"], cfg, h, positions,
+                                    window=0, causal=True, impl=impl)
+    h = rms_norm(x, lp["norm_cross"], cfg.norm_eps)
+    ek, ev = attn.cross_kv(lp["cross"], cfg, enc_out)
+    x = x + attn.cross_attention(lp["cross"], cfg, h, ek, ev, enc_valid)
+    h = rms_norm(x, lp["norm_mlp"], cfg.norm_eps)
+    return x + mlp_apply(lp["mlp"], h)
+
+
 def decoder_apply(cfg, stacked: dict, x: torch.Tensor,
                   positions: torch.Tensor, enc_out: torch.Tensor,
-                  enc_valid: torch.Tensor, *, impl: str = "xla"):
-    """Teacher-forced full-sequence decoder pass."""
-    for i in range(_n_layers(stacked)):
-        lp = _tree.index(stacked, i)
-        h = rms_norm(x, lp["norm_self"], cfg.norm_eps)
-        x = x + attn.gqa_self_attention(lp["self"], cfg, h, positions,
-                                        window=0, causal=True, impl=impl)
-        h = rms_norm(x, lp["norm_cross"], cfg.norm_eps)
-        ek, ev = attn.cross_kv(lp["cross"], cfg, enc_out)
-        x = x + attn.cross_attention(lp["cross"], cfg, h, ek, ev, enc_valid)
-        h = rms_norm(x, lp["norm_mlp"], cfg.norm_eps)
-        x = x + mlp_apply(lp["mlp"], h)
+                  enc_valid: torch.Tensor, *, impl: str = "xla",
+                  remat: bool = True):
+    """Teacher-forced full-sequence decoder pass; with ``remat`` each
+    layer is checkpointed, as the reference's scan body."""
+    for lp in placed_layers(stacked):
+        def body(x_, lp=lp):
+            return _dec_block(cfg, lp, x_, positions, enc_out, enc_valid,
+                              impl)
+        x = checkpointed(body, x) if remat else body(x)
     return x
 
 
 def decoder_cache_init(cfg, batch: int, cache_len: int, enc_len: int,
                        dtype, device) -> dict:
     Hkv, Dh = cfg.n_kv_heads, cfg.resolved_head_dim
+    kw = dict(dtype=dtype, device=device, batch=batch)
     return {
         "self": attn.gqa_cache_init(cfg, batch, cache_len, dtype, device),
-        "cross_k": torch.zeros((batch, enc_len, Hkv, Dh), dtype=dtype,
-                               device=device),
-        "cross_v": torch.zeros((batch, enc_len, Hkv, Dh), dtype=dtype,
-                               device=device),
+        "cross_k": cache_full((batch, enc_len, Hkv, Dh), 0, **kw),
+        "cross_v": cache_full((batch, enc_len, Hkv, Dh), 0, **kw),
     }
 
 

@@ -8,8 +8,14 @@ reference's ``jax.random`` draws, not the same numbers.
 from __future__ import annotations
 
 import torch
-from torch.distributed.tensor import DTensor
+import torch.distributed as dist
+import torch.utils.checkpoint
+from torch.distributed.tensor import (DTensor, Replicate, Shard,
+                                      distribute_tensor)
 import torch.nn.functional as F
+
+from repro_torch.sharding.mesh import program_scope
+from repro_torch.sharding.specs import contiguous_stride
 
 
 def dense_init(gen: torch.Generator, shape, in_axis: int = -2,
@@ -95,6 +101,74 @@ def mlp_apply(p: dict, x: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def checkpointed(fn, *args):
+    """``fn(*args)``; while autograd records, under ``torch.utils.checkpoint``
+    (the reference's ``jax.checkpoint``): the activations inside ``fn`` are
+    not kept for the backward, which runs ``fn`` again. Over ranks the
+    recompute re-enters the forward's mesh scope (``program_scope``)."""
+    if not torch.is_grad_enabled():
+        return fn(*args)
+    scope = program_scope()
+    body = fn
+    if scope is not None:
+        def body(*a):
+            with scope():
+                return fn(*a)
+    return torch.utils.checkpoint.checkpoint(body, *args, use_reentrant=False,
+                                             preserve_rng_state=False)
+
+
+def _logsumexp(logits: torch.Tensor) -> torch.Tensor:
+    """``logsumexp`` over the last dim. Over ranks (a DTensor whose vocab
+    dim may be sharded) it is vocab-parallel (``_VocabLogsumexp``), so no
+    rank gathers the logits or their gradient."""
+    if not isinstance(logits, DTensor):
+        return torch.logsumexp(logits, dim=-1)
+    if any(p.is_partial() for p in logits.placements):
+        logits = logits.redistribute(logits.device_mesh, [
+            Replicate() if p.is_partial() else p for p in logits.placements])
+    return _VocabLogsumexp.apply(logits)
+
+
+class _VocabLogsumexp(torch.autograd.Function):
+    """The vocab-parallel logsumexp of a ``DTensor`` over its last dim:
+    each rank's max and sum of exp over its vocab shard, all-reduced (max,
+    then sum) over the mesh dims that split the vocab, as the reference's
+    vocab-parallel CE. The gradient, softmax times the incoming one, is
+    computed on each rank's shard and keeps the logits' placement."""
+
+    @staticmethod
+    def forward(ctx, logits):
+        mesh, pl = logits.device_mesh, list(logits.placements)
+        last = logits.dim() - 1
+        vocab = [i for i, p in enumerate(pl)
+                 if isinstance(p, Shard) and p.dim == last]
+        x = logits.to_local()
+        m = torch.amax(x, dim=-1, keepdim=True)
+        for i in vocab:
+            dist.all_reduce(m, dist.ReduceOp.MAX, group=mesh.get_group(i))
+        s = torch.sum(torch.exp(x - m), dim=-1)
+        for i in vocab:
+            dist.all_reduce(s, group=mesh.get_group(i))
+        lse = torch.log(s) + m[..., 0]
+        out_pl = [Replicate() if i in vocab else p for i, p in enumerate(pl)]
+        ctx.save_for_backward(x, lse)
+        ctx.spec = (mesh, pl, out_pl, logits.shape, logits.stride())
+        shape = logits.shape[:-1]
+        return DTensor.from_local(lse, mesh, out_pl, run_check=False,
+                                  shape=shape,
+                                  stride=contiguous_stride(shape))
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, lse = ctx.saved_tensors
+        mesh, pl, out_pl, shape, stride = ctx.spec
+        g = grad.redistribute(mesh, out_pl).to_local()
+        gx = g[..., None] * torch.exp(x - lse[..., None])
+        return DTensor.from_local(gx, mesh, pl, run_check=False, shape=shape,
+                                  stride=stride)
+
+
 def _gold_logits(logits: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """``logits[..., y]``. Over ranks (a DTensor whose vocab dim may be
     sharded) it is the masked sum over the vocab, so each rank sums its
@@ -102,7 +176,17 @@ def _gold_logits(logits: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     reference's vocab-parallel CE; the other terms are exact zeros."""
     if not isinstance(logits, DTensor):
         return torch.gather(logits, -1, y[..., None])[..., 0]
-    ids = torch.arange(logits.shape[-1], device=y.device)
+    mesh, last = logits.device_mesh, logits.dim() - 1
+    # the ids split as the logits' vocab, the labels as their rows, so
+    # the mask is no larger than a rank's logits
+    ids = distribute_tensor(
+        torch.arange(logits.shape[-1], device=logits.device), mesh,
+        [Shard(0) if isinstance(p, Shard) and p.dim == last else Replicate()
+         for p in logits.placements], src_data_rank=None)
+    rows = [p if isinstance(p, Shard) and p.dim < last else Replicate()
+            for p in logits.placements]
+    y = (y.redistribute(mesh, rows) if isinstance(y, DTensor) else
+         distribute_tensor(y, mesh, rows, src_data_rank=None))
     hit = ids == y[..., None]
     return torch.sum(torch.where(hit, logits, 0.0), dim=-1)
 
@@ -114,21 +198,26 @@ def chunked_softmax_xent(hidden: torch.Tensor, unembed: torch.Tensor,
     """Mean next-token CE. hidden: (B,S,D); unembed: (D,V); labels: (B,S).
 
     Logits are computed chunk by chunk over the sequence, so the peak
-    logits buffer is (B, chunk, V). The logsumexp runs over all
-    ``unembed`` columns, padded vocab ids included, as the reference's.
+    logits buffer is (B, chunk, V); each chunk is checkpointed, as the
+    reference's, so the backward keeps no chunk's logits either. The logsumexp runs over all ``unembed`` columns,
+    padded vocab ids included, as the reference's.
     """
     S = hidden.shape[1]
     chunk = min(chunk, S)
     w = unembed.to(hidden.dtype)
+
+    def chunk_loss(h, y, m):
+        logits = softcap((h @ w).to(torch.float32), final_softcap)
+        logz = _logsumexp(logits)
+        gold = _gold_logits(logits, y)
+        return torch.sum((logz - gold) * m), torch.sum(m)
+
     tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
     cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
     for s0 in range(0, S, chunk):
-        h = hidden[:, s0:s0 + chunk]
-        y = labels[:, s0:s0 + chunk]
-        m = mask[:, s0:s0 + chunk]
-        logits = softcap((h @ w).to(torch.float32), final_softcap)
-        logz = torch.logsumexp(logits, dim=-1)
-        gold = _gold_logits(logits, y)
-        tot = tot + torch.sum((logz - gold) * m)
-        cnt = cnt + torch.sum(m)
+        part, n = checkpointed(chunk_loss, hidden[:, s0:s0 + chunk],
+                               labels[:, s0:s0 + chunk],
+                               mask[:, s0:s0 + chunk])
+        tot = tot + part
+        cnt = cnt + n
     return tot / torch.clamp(cnt, min=1.0)

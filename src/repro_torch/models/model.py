@@ -2,8 +2,8 @@
 ``repro.models.model``: dense, MoE, MLA, SSM, hybrid with meta tokens,
 the vision-frontend stub and the encoder-decoder).
 
-``Model`` wraps a ``ModelConfig``, an attention/scan ``impl`` and a
-device, and exposes:
+``Model`` wraps a ``ModelConfig``, an attention/scan ``impl``, ``remat``
+and a device, and exposes:
   * ``init(generator)``          — parameter tree (fp32 master), on device
   * ``cast(params)``             — fp32 master -> the config's compute dtype
   * ``loss_fn(params, batch)``   — mean next-token CE + aux losses
@@ -15,6 +15,13 @@ device, and exposes:
   * ``abstract_params()``, ``abstract_cache(batch, cache_len)`` and
     ``input_specs(shape)`` — the same trees as tensors on the ``meta``
     device (torch's ``ShapeDtypeStruct``): shapes and dtypes, no storage
+
+A training forward (while autograd records) checkpoints each chunk of
+the CE and each q chunk of the plain attention (``torch.utils.checkpoint``),
+as the reference does at either ``remat``; ``remat=True`` (the default,
+as the reference's) checkpoints each layer body too. The backward then
+runs the layers' forward once more and keeps one layer's activations at
+a time; the values are bitwise those of ``remat=False``.
 
 ``impl="xla"`` runs the plain attention and scan; ``impl="kernel"`` runs
 K6 flash attention and K7 the SSD scan over full sequences (prefill, the
@@ -87,11 +94,12 @@ def _stream_labels(tokens: torch.Tensor, n_prefix: int, S: int):
 
 class Model:
     def __init__(self, cfg: ModelConfig, *, impl: str = "xla",
-                 device=DEFAULT_DEVICE):
+                 remat: bool = True, device=DEFAULT_DEVICE):
         if impl not in IMPLS:
             raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
         self.cfg = cfg
         self.impl = impl
+        self.remat = bool(remat)
         self.device = resolve(device)
 
     def generator(self, seed: int) -> torch.Generator:
@@ -209,7 +217,8 @@ class Model:
             x, positions, labels, mask = self._assemble_stream(params, batch)
             hidden, aux = transformer.stack_apply(
                 cfg, params["stack"], x, positions,
-                transformer.layer_windows(cfg), impl=self.impl)
+                transformer.layer_windows(cfg), impl=self.impl,
+                remat=self.remat)
         hidden = rms_norm(hidden, params["final_norm"], cfg.norm_eps)
         ce = chunked_softmax_xent(hidden, self._unembed_matrix(params),
                                   labels, mask,
@@ -223,7 +232,8 @@ class Model:
         B, Se = x.shape[:2]
         x = x @ params["frontend_proj"].to(x.dtype)
         x = encdec.encoder_apply(cfg, params["enc_stack"], x,
-                                 self._positions(B, Se), impl=self.impl)
+                                 self._positions(B, Se), impl=self.impl,
+                                 remat=self.remat)
         return rms_norm(x, params["enc_norm"], cfg.norm_eps)
 
     def _encdec_forward(self, params, batch):
@@ -235,7 +245,8 @@ class Model:
                                device=self.device)
         hidden = encdec.decoder_apply(
             cfg, params["dec_stack"], self._embed_tokens(params, tokens),
-            self._positions(B, Sd), enc_out, enc_valid, impl=self.impl)
+            self._positions(B, Sd), enc_out, enc_valid, impl=self.impl,
+            remat=self.remat)
         labels = F.pad(tokens[:, 1:], (0, 1))
         mask = F.pad(torch.ones((B, Sd - 1), dtype=torch.float32,
                                 device=self.device), (0, 1))
@@ -361,9 +372,9 @@ class Model:
                 "pos": sds((B, 1), i32)}
 
 
-def build_model(name_or_cfg, *, impl: str = "xla",
+def build_model(name_or_cfg, *, impl: str = "xla", remat: bool = True,
                 device=DEFAULT_DEVICE) -> Model:
     if isinstance(name_or_cfg, str):
         from repro_torch.configs import get_config
         name_or_cfg = get_config(name_or_cfg)
-    return Model(name_or_cfg, impl=impl, device=device)
+    return Model(name_or_cfg, impl=impl, remat=remat, device=device)

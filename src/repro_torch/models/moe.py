@@ -29,6 +29,19 @@ switches to the group-local dispatch ``_moe_apply_grouped``: the tokens
 split into G groups (the data-parallel shards of a mesh) and each group
 fills its own capacity buffers, with the same three orders inside a
 group.
+
+Over a mesh of ranks (``DTensor`` tokens and expert weights) the expert
+buffers stay sharded, as the reference's constraints keep them: the
+dispatch plan, a few (T, K) index arrays, is computed whole on every
+rank, and each rank fills only its own block of the (E, C, D) buffers
+(its experts, over the mesh dims that split the expert weights, and its
+share of the capacity slots, or of the groups, over the dims that split
+the tokens), multiplies it by its own experts' weights, and adds its
+slots' weighted outputs into a partial (T, D) that one reduction brings
+to the tokens' placement (``_experts_over_ranks``). No rank holds a
+whole buffer. Within a rank each token's contributions are added in
+ascending expert order; across ranks the partials are summed by the
+collective.
 """
 from __future__ import annotations
 
@@ -36,7 +49,9 @@ import os
 
 import torch
 import torch.nn.functional as F
-from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor._utils import \
+    compute_local_shape_and_global_offset
 
 from repro_torch.models.layers import dense_init
 from repro_torch.sharding.specs import (P, constrain, contiguous_stride,
@@ -92,6 +107,7 @@ def moe_apply(p: dict, cfg, x: torch.Tensor):
     G = int(os.environ.get("REPRO_MOE_GROUPED", "1"))
     if G > 1:
         return _moe_apply_grouped(p, cfg, x, G)
+    over_ranks = _over_ranks(x, p)
     m = cfg.moe
     B, S, D = x.shape
     E, K = m.num_experts, m.top_k
@@ -103,18 +119,166 @@ def moe_apply(p: dict, cfg, x: torch.Tensor):
     w, idx, aux = router_topk(logits, K)                 # (T,K)
 
     cap = capacity(cfg, T)
-    # the sort, the scatter into the expert buffers and the gather back
-    # run on whole tensors (``replicated_call``: over ranks they have no
-    # sharding rule); the expert matmuls between them stay sharded
+    # the plan's sort runs on whole (T, K) routings (``replicated_call``:
+    # over ranks it has no sharding rule)
     st, sw, slot, keep = replicated_call(_dispatch_plan, idx, w, E, cap)
-    buf = replicated_call(_fill_buffers, xf, st, slot, E, cap)
+    if over_ranks:
+        out = _experts_over_ranks(p, dt, xf, _ByToken(st, sw, slot, keep, K),
+                                  (E, cap), cap)
+        return out.reshape(B, S, D), aux * m.router_aux_weight
+    buf = _fill_buffers(xf, st, slot, E, cap)
 
     h = torch.bmm(buf, p["w_gate"].to(dt))
     u = torch.bmm(buf, p["w_up"].to(dt))
     y = torch.bmm(F.silu(h) * u, p["w_down"].to(dt))    # (E,C,D)
 
-    out = replicated_call(_combine, y, st, sw, slot, keep, T, K)
+    out = _combine(y, st, sw, slot, keep, T, K)
     return out.reshape(B, S, D), aux * m.router_aux_weight
+
+
+def _over_ranks(tokens, p: dict) -> bool:
+    """Tokens and expert weights are ``DTensor``s (the sharded dispatch),
+    or all plain tensors (the one-process one); a mix raises."""
+    over = [isinstance(a, DTensor) for a in
+            (tokens, p["w_gate"], p["w_up"], p["w_down"])]
+    if any(over) and not all(over):
+        raise ValueError("the MoE dispatch takes tokens and expert weights "
+                         "that are all DTensors or all plain tensors")
+    return all(over)
+
+
+class _ByToken:
+    """A dispatch plan (the sorted assignments of ``_dispatch_plan`` or
+    ``_grouped_plan``, replicated ``DTensor``s) as local arrays, both in
+    the plan's order (``st``, ``sorted_slot``, ``sorted_keep``) and by
+    token: each token's K slots and whether they are kept, in ascending
+    expert order (``slot``, ``keep``: (..., T, K)). A leading group dim
+    leads every array. ``sw``, the weights, stays a replicated
+    ``DTensor``: its gradient is a partial sum over the ranks that split
+    the buffers."""
+
+    def __init__(self, st, sw, slot, keep, K: int):
+        self.st, self.sorted_slot, self.sorted_keep = (
+            a.to_local() for a in (st, slot, keep))
+        self.sw, self.K = sw, K
+        order = torch.argsort(self.st, dim=-1, stable=True)
+        lead = self.st.shape[:-1]
+        self.slot, self.keep = (
+            torch.gather(a, -1, order).reshape(*lead, -1, K)
+            for a in (self.sorted_slot, self.sorted_keep))
+
+
+def _split(tokens: DTensor, w: DTensor, *, groups: bool):
+    """How the mesh splits the (E, C, D) buffers ((G, E, C, D) with
+    ``groups``) over ranks, one entry a mesh dim: a dim that splits the
+    expert weights' expert dim splits the buffers' expert dim; one that
+    splits the tokens (dim 0) splits the capacity slots (the groups); any
+    other holds the whole block, as every rank of it computes the same.
+    Returns the buffers' placements, the tokens' placements in which each
+    rank reads them (the groups its block needs, or all tokens) and in
+    which its partial result stands, the plan's grad placements, and the
+    expert weights' placements and grad placements."""
+    buf, tok, out, plan, w_pl, w_grad = [], [], [], [], [], []
+    for tp, wp in zip(tokens.placements, w.placements):
+        if isinstance(wp, Shard) and wp.dim == 0:          # experts
+            buf.append(Shard(1 if groups else 0))
+            tok.append(Replicate())
+            out.append(Partial())
+            plan.append(Partial())
+            w_pl.append(Shard(0))
+            w_grad.append(Shard(0))
+        elif isinstance(tp, Shard) and tp.dim == 0:        # slots / groups
+            buf.append(Shard(0 if groups else 1))
+            tok.append(Shard(0) if groups else Replicate())
+            out.append(Shard(0) if groups else Partial())
+            plan.append(Partial())
+            w_pl.append(Replicate())
+            w_grad.append(Partial())
+        else:
+            for lst in (buf, tok, out, plan, w_pl, w_grad):
+                lst.append(Replicate())
+    return buf, tok, out, plan, w_pl, w_grad
+
+
+def _local_mlp(p: dict, dt, buf: torch.Tensor, w_pl, w_grad):
+    """This rank's experts' SwiGLU over its (..., E_l, C, D) buffer block;
+    each expert weight is gathered to ``w_pl`` (its experts whole) and its
+    gradient comes back as ``w_grad`` (partial over the ranks that split
+    the slots)."""
+    def local(k):
+        w = p[k].to(dt)
+        return w.redistribute(w.device_mesh, w_pl).to_local(
+            grad_placements=w_grad)
+    h = torch.matmul(buf, local("w_gate"))
+    u = torch.matmul(buf, local("w_up"))
+    return torch.matmul(F.silu(h) * u, local("w_down"))
+
+
+def _experts_over_ranks(p: dict, dt, xf: DTensor, plan: _ByToken,
+                        grid: tuple, cap: int, *, groups: bool = False):
+    """The expert FFN over ranks, its buffers sharded. ``xf``: (T, D)
+    tokens, or (G, Tg, D) token groups; ``grid``: the buffers' (E, cap)
+    ((G, E, cap) with ``groups``). Each rank fills its block of the
+    buffers from the tokens it reads, runs its experts on it, and adds
+    its slots' weighted outputs into each token's row (ascending expert
+    order) of a partial result, which one reduction brings to ``xf``'s
+    placement."""
+    mesh = xf.device_mesh
+    D = xf.shape[-1]
+    buf_pl, tok_pl, out_pl, plan_pl, w_pl, w_grad = _split(
+        xf, p["w_gate"], groups=groups)
+    shape, offset = compute_local_shape_and_global_offset(
+        tuple(grid) + (D,), mesh, buf_pl)
+    g0, ng = (offset[0], shape[0]) if groups else (0, 1)
+    e0, ne, c0, nc = offset[-3], shape[-3], offset[-2], shape[-2]
+    n = ne * nc
+    xw = xf.redistribute(mesh, tok_pl).to_local(grad_placements=out_pl)
+    if not groups:
+        xw = xw[None]
+
+    def rows(a):                   # the plan's rows of this rank's groups
+        return a[g0:g0 + ng] if groups else a[None]
+    sw = rows(plan.sw.to_local(grad_placements=plan_pl))
+    lslot, hit = _local_slot(rows(plan.sorted_slot), rows(plan.sorted_keep),
+                             cap, e0, ne, c0, nc)
+    # each local buffer slot's token and weight (the overflow slot n takes
+    # what falls outside the block, and goes)
+    g_idx = torch.arange(ng, device=lslot.device)[:, None].expand_as(lslot)
+    tok = torch.zeros((ng, n + 1), dtype=torch.long, device=lslot.device)
+    tok[g_idx, lslot] = rows(plan.st)
+    filled = torch.zeros((ng, n + 1), dtype=torch.bool, device=lslot.device)
+    filled[g_idx, lslot] = hit
+    wgt = torch.zeros((ng, n + 1), dtype=sw.dtype,
+                      device=lslot.device).index_put((g_idx, lslot), sw)
+    zero = torch.zeros((), dtype=dt, device=lslot.device)
+    # F.embedding, not advanced indexing: its backward adds in a fixed
+    # order (``Model._embed_tokens``)
+    buf = torch.where(filled[:, :n, None], torch.stack(
+        [F.embedding(tok[g, :n], xw[g]) for g in range(ng)]), zero)
+    y = _local_mlp(p, dt, buf.reshape(ng, ne, nc, D), w_pl, w_grad)
+    yw = y.reshape(ng, n, D) * wgt[:, :n, None].to(dt)
+    at, hit = _local_slot(rows(plan.slot), rows(plan.keep), cap, e0, ne, c0,
+                          nc)
+    at = torch.clamp(at, max=n - 1)
+    out = None
+    for j in range(plan.K):
+        c = torch.where(hit[..., j, None], torch.stack(
+            [F.embedding(at[g, :, j], yw[g]) for g in range(ng)]), zero)
+        out = c if out is None else out + c
+    if not groups:
+        out = out[0]
+    out = DTensor.from_local(out, mesh, out_pl, run_check=False,
+                             shape=xf.shape, stride=contiguous_stride(xf.shape))
+    return out.redistribute(mesh, xf.placements)
+
+
+def _local_slot(slot, keep, cap: int, e0: int, ne: int, c0: int, nc: int):
+    """Buffer slots ``e * cap + c`` as this rank's block's local
+    ``(e - e0) * nc + (c - c0)``, and whether each is kept and in the
+    block; the others point at the overflow slot ``ne * nc``."""
+    e, c = torch.div(slot, cap, rounding_mode="floor"), slot % cap
+    hit = keep & (e >= e0) & (e < e0 + ne) & (c >= c0) & (c < c0 + nc)
+    return torch.where(hit, (e - e0) * nc + (c - c0), ne * nc), hit
 
 
 def _dispatch_plan(idx: torch.Tensor, w: torch.Tensor, E: int, cap: int):
@@ -172,44 +336,35 @@ def _moe_apply_grouped(p: dict, cfg, x: torch.Tensor, G: int):
         raise ValueError(f"{G} token groups do not divide {T} tokens")
     Tg = T // G
     dt = x.dtype
-    xg = constrain(x.reshape(G, Tg, D), P("data", None, None))
+    over_ranks = _over_ranks(x, p)
+    # the groups over "data" before the view: the stream may be split on
+    # its batch over "model" too, which the view cannot regroup
+    xg = constrain(constrain(x, P("data", None, None)).reshape(G, Tg, D),
+                   P("data", None, None))
 
     logits = xg @ p["router"].to(dt)                     # (G,Tg,E)
     w, idx, aux = router_topk(logits.reshape(T, E), K)   # (T,K)
 
     cap = max(8, min(int(m.capacity_factor * Tg * K / E), Tg))
     st, sw, slot, keep = replicated_call(_grouped_plan, idx, w, G, E, cap)
-    buf = constrain(replicated_call(_grouped_fill, xg, st, slot, E, cap),
+    if over_ranks:
+        out = _experts_over_ranks(p, dt, xg, _ByToken(st, sw, slot, keep, K),
+                                  (G, E, cap), cap, groups=True)
+        # placed after the view too, so the backward regroups no stream
+        # split on its batch over "model"
+        return (constrain(out.reshape(B, S, D), P("data", None, None)),
+                aux * m.router_aux_weight)
+    buf = constrain(_grouped_fill(xg, st, slot, E, cap),
                     P("data", "model", None, None))
 
-    h = _experts("gecd,edf->gecf", buf, p["w_gate"].to(dt))
-    u = _experts("gecd,edf->gecf", buf, p["w_up"].to(dt))
-    y = _experts("gecf,efd->gecd", F.silu(h) * u, p["w_down"].to(dt))
+    h = torch.einsum("gecd,edf->gecf", buf, p["w_gate"].to(dt))
+    u = torch.einsum("gecd,edf->gecf", buf, p["w_up"].to(dt))
+    y = torch.einsum("gecf,efd->gecd", F.silu(h) * u, p["w_down"].to(dt))
     y = constrain(y, P("data", "model", None, None))
 
-    out = constrain(replicated_call(_grouped_combine, y, st, sw, slot, keep,
-                                    K), P("data", None, None))
+    out = constrain(_grouped_combine(y, st, sw, slot, keep, K),
+                    P("data", None, None))
     return out.reshape(B, S, D), aux * m.router_aux_weight
-
-
-def _experts(eq: str, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``einsum(eq, x, w)`` of (G, E, C, .) buffers with (E, ., .) expert
-    weights. Over ranks each rank multiplies its own groups and experts
-    (the buffers' placement; the weights gathered to match), so the
-    expert compute is local, as the reference's constraints make it."""
-    if not isinstance(x, DTensor):
-        return torch.einsum(eq, x, w)
-    mesh = x.device_mesh
-    if any(not isinstance(p, (Shard, Replicate)) or
-           (isinstance(p, Shard) and p.dim > 1) for p in x.placements):
-        raise ValueError(f"expert buffers placed {x.placements}: groups "
-                         "and experts only")
-    w_pl = [Shard(0) if isinstance(p, Shard) and p.dim == 1 else Replicate()
-            for p in x.placements]
-    out = torch.einsum(eq, x.to_local(), w.redistribute(mesh, w_pl).to_local())
-    shape = tuple(x.shape[:3]) + (w.shape[-1],)
-    return DTensor.from_local(out, mesh, x.placements, run_check=False,
-                              shape=shape, stride=contiguous_stride(shape))
 
 
 def _grouped_plan(idx: torch.Tensor, w: torch.Tensor, G: int, E: int,

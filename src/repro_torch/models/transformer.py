@@ -23,8 +23,9 @@ from repro_torch.configs.base import (ATTN_MLA, BLOCK_ATTN, BLOCK_HYBRID,
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.layers import mlp_apply, mlp_init, rms_norm
-from repro_torch.sharding.specs import P, constrain
+from repro_torch.models.layers import (checkpointed, mlp_apply, mlp_init,
+                                       rms_norm)
+from repro_torch.sharding.specs import P, constrain, placed_layers
 
 
 def _has_attn(cfg) -> bool:
@@ -178,12 +179,18 @@ def stack_init(gen: torch.Generator, cfg, n_layers: int) -> dict:
 
 
 def stack_apply(cfg, stacked: dict, x: torch.Tensor,
-                positions: torch.Tensor, windows, *, impl: str = "xla"):
-    """windows: (L,) ints. Returns (x, total_aux)."""
+                positions: torch.Tensor, windows, *, impl: str = "xla",
+                remat: bool = True):
+    """windows: (L,) ints. Returns (x, total_aux). With ``remat`` (and
+    autograd recording) each layer body is checkpointed, as the
+    reference's ``jax.checkpoint`` of its scan body: the backward keeps
+    each layer's input and runs the layer again."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i, w in enumerate(np.asarray(windows).tolist()):
-        x, a = block_apply(cfg, _tree.index(stacked, i), x, positions,
-                           int(w), impl=impl)
+    for w, lp in zip(np.asarray(windows).tolist(), placed_layers(stacked)):
+        def body(x_, pos_, lp=lp, w=int(w)):
+            return block_apply(cfg, lp, x_, pos_, w, impl=impl)
+        x, a = (checkpointed(body, x, positions) if remat
+                else body(x, positions))
         aux = aux + a
     return x, aux
 

@@ -5,7 +5,9 @@ Functional like the reference: ``update`` returns new updates and state
 and leaves its inputs alone. ``cosine_schedule`` gives an ``lr`` callable
 for either optimizer. Global-norm clipping comes before the
 moments; moments are fp32 whatever the compute dtype; ``count`` is a
-Python int and bias correction uses ``b ** count``.
+Python int and bias correction uses ``b ** count``. Over ranks each
+gradient is first placed as its moment (``_placed_as``), so the update
+gathers nothing.
 """
 from __future__ import annotations
 
@@ -13,6 +15,7 @@ import math
 from typing import Callable, NamedTuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch import tree as _tree
 
@@ -47,6 +50,17 @@ def clip_by_global_norm(grads, max_norm: float):
     return _tree.tree_map(lambda g: g * scale, grads), gn
 
 
+def _placed_as(g, like):
+    """A ``DTensor`` gradient redistributed to the placement of ``like``
+    (its moment, placed as its parameter): a partial gradient is
+    reduce-scattered, a replicated one keeps its shard. Plain tensors as
+    they are."""
+    if (isinstance(g, DTensor) and isinstance(like, DTensor)
+            and tuple(g.placements) != tuple(like.placements)):
+        return g.redistribute(like.device_mesh, like.placements)
+    return g
+
+
 def _f32_zeros(p):
     # zeros_like keeps a DTensor's placement: the moments are sharded as
     # their parameter is
@@ -62,6 +76,7 @@ def adamw(lr, *, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
                 "v": _tree.tree_map(_f32_zeros, params), "count": 0}
 
     def update(grads, state, params):
+        grads = _tree.tree_map(_placed_as, grads, state["m"])
         grads, gnorm = clip_by_global_norm(grads, max_grad_norm)
         count = state["count"] + 1
         m = _tree.tree_map(lambda m_, g: b1 * m_ + (1 - b1)

@@ -149,6 +149,34 @@ def sharded_program(leaves):
     return stack
 
 
+def program_scope():
+    """A context factory that re-enters, on whatever thread enters it,
+    the mesh scope and the DTensor implicit replication that are on
+    here. A checkpoint's recompute runs in the backward, which may run on
+    autograd's device thread, where neither is set (both are per thread;
+    the dispatch modes, ``_EvenViews`` among them, follow the backward
+    there themselves). None outside a program over ranks (no mesh of
+    ranks in scope, no implicit replication): there the recompute needs
+    neither."""
+    from torch.distributed.tensor import DTensor
+    mesh = current_mesh()
+    implicit = bool(DTensor._op_dispatcher._allow_implicit_replication)
+    if not implicit and (mesh is None or mesh.device_mesh is None):
+        return None
+
+    @contextlib.contextmanager
+    def scope():
+        d = DTensor._op_dispatcher
+        before = d._allow_implicit_replication
+        d._allow_implicit_replication = implicit
+        try:
+            with mesh_scope(mesh):
+                yield
+        finally:
+            d._allow_implicit_replication = before
+    return scope
+
+
 _VIEWS = ("view.default", "_unsafe_view.default", "reshape.default")
 
 

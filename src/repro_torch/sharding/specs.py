@@ -134,6 +134,29 @@ def cache_pspecs(cache_like, mesh, *, batch: int):
     return _tree.tree_map(spec, cache_like)
 
 
+def cache_full(shape, fill, *, dtype, device, batch: int) -> torch.Tensor:
+    """A fresh one-layer cache leaf of ``shape`` filled with ``fill``. With
+    a mesh over ranks in scope it is a ``DTensor`` placed as
+    ``cache_pspecs`` places the stacked leaf (each rank allocates only its
+    shard, as the reference's cache comes out of its jitted prefill);
+    otherwise a plain tensor on ``device``."""
+    mesh = current_mesh()
+    shape = tuple(int(n) for n in shape)
+    if mesh is None or mesh.device_mesh is None:
+        return torch.full(shape, fill, dtype=dtype, device=device)
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    stacked = torch.empty((1,) + shape, device="meta")
+    pl = placements(P(*cache_pspecs(stacked, mesh, batch=batch)[1:]), mesh)
+    local, _ = compute_local_shape_and_global_offset(shape,
+                                                     mesh.device_mesh, pl)
+    return DTensor.from_local(
+        torch.full(local, fill, dtype=dtype, device=device),
+        mesh.device_mesh, pl, run_check=False, shape=torch.Size(shape),
+        stride=contiguous_stride(shape))
+
+
 def placements(spec, mesh) -> list:
     """The DTensor placements of ``spec`` on ``mesh``, one a mesh axis: an
     axis that the spec names at tensor dim d is ``Shard(d)``, every other
@@ -279,6 +302,32 @@ def constrain(x, spec: PartitionSpec, mesh=None):
     if mesh.device_mesh is not None:
         return sh.constrain(x) if isinstance(x, DTensor) else x
     return sh.place(x)
+
+
+def grad_as_placed(x):
+    """``x`` in the forward; in the backward its gradient is brought to
+    ``x``'s placement as it arrives (a partial one reduce-scattered), for
+    a ``DTensor`` ``x``: so a layer's weight gradient stays sharded as the
+    weight, and a stack's gradient sums no whole layers. A plain tensor
+    as it is."""
+    from torch.distributed.tensor import DTensor
+    if not isinstance(x, DTensor):
+        return x
+    return DTensor.from_local(x.to_local(), x.device_mesh, x.placements,
+                              run_check=False, shape=x.shape,
+                              stride=x.stride())
+
+
+def placed_layers(stacked):
+    """The layers of a stacked tree (leading layer dim), in order. Over
+    ranks each leaf goes through ``grad_as_placed``; a stack of plain
+    tensors yields its layers as they are."""
+    from torch.distributed.tensor import DTensor
+    leaves = _tree.leaves(stacked)
+    placed = any(isinstance(a, DTensor) for a in leaves)
+    for i in range(leaves[0].shape[0]):
+        lp = _tree.index(stacked, i)
+        yield _tree.tree_map(grad_as_placed, lp) if placed else lp
 
 
 def replicated_call(fn, *args):

@@ -128,13 +128,17 @@ def test_model_flops_estimate_equal_reference(arch):
         assert got == want and type(got[1]) is type(want[1]) is int
 
 
-def hand_count(cfg, mode, B, S):
+def hand_count(cfg, mode, B, S, remat=True):
     """2·M·N·K over the matmuls of one step of a dense GQA config with a
     gated MLP (``impl="xla"``: the scores over every cached key), as the
     dry run builds it: a train step is a forward and a backward of twice
-    its FLOPs with the unembed over every position; a prefill takes the
-    unembed of the last position only; a decode step is one token
-    against an ``S``-slot cache."""
+    its FLOPs with the unembed over every position, and the recompute of
+    what is checkpointed: at ``remat`` the layers and CE chunks, a forward
+    less each layer's ``w_down`` product (no backward needs its output,
+    and the recompute stops before it), else the CE chunks' unembed
+    alone (``S`` is under one q chunk); a prefill takes the unembed of
+    the last position only; a decode step is one token against an
+    ``S``-slot cache."""
     D, H, kv, F, V, L = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_ff,
                          cfg.vocab, cfg.n_layers)
     hd = cfg.head_dim or D // H
@@ -143,7 +147,10 @@ def hand_count(cfg, mode, B, S):
     scores = 2 * H * Sq * S * hd                          # q·k and p·v
     fwd = L * 2 * B * (Sq * proj + scores) \
         + 2 * (B * S if mode == "train" else B) * D * V
-    return 3 * fwd if mode == "train" else fwd
+    if mode != "train":
+        return fwd
+    return 3 * fwd + (fwd - L * 2 * B * S * F * D if remat
+                      else 2 * B * S * D * V)
 
 
 # the reduced configs whose every matmul ``hand_count`` spells out (MHA,
@@ -164,8 +171,10 @@ def test_flop_count_equals_hand_count(arch, mode, batch, seq):
 @pytest.mark.parametrize("mode", ["decode", "prefill", "train"])
 def test_fedforecast_reduced_flop_counts(mode):
     """Reduced fedforecast-100m at 8 x 64 through ``measure``: the hand
-    count, and for the train step exactly three forwards of
-    ``loss_fn``."""
+    count, and for the train step at ``remat=False`` exactly three
+    forwards of ``loss_fn`` and the CE chunk's unembed, which its
+    checkpoint recomputes (at ``remat=True`` the hand count adds the
+    layers' recompute)."""
     cfg = tget("fedforecast-100m").reduced()
     shape = InputShape(mode, 64, 8, mode)
     rec = dryrun.measure(cfg, shape)
@@ -174,7 +183,11 @@ def test_fedforecast_reduced_flop_counts(mode):
         model = tbuild(cfg, device="meta")
         fwd = dryrun.count(model.loss_fn, (model.abstract_params(),
                                            model.input_specs(shape)))
-        assert rec["per_device"]["flops"] == 3 * fwd["flops"]
+        plain = dryrun.measure(cfg, shape, remat=False)
+        unembed = 2 * 8 * 64 * cfg.d_model * cfg.vocab
+        assert plain["per_device"]["flops"] == 3 * fwd["flops"] + unembed
+        assert plain["per_device"]["flops"] == hand_count(
+            cfg, mode, 8, 64, remat=False)
 
 
 def _ref_cost_flops(monkeypatch, cfg, shape):
@@ -197,9 +210,11 @@ def test_reference_cost_mode_caveats(monkeypatch):
     fedforecast-100m, 8 x 64): XLA's decode count falls below the matmuls
     alone, and two more layers add under half of their matmuls to it;
     its train count holds a second forward of the layers (every layer is
-    remat'd: 3 forwards of the port's against about 4); its prefill count
-    is the matmuls plus the elementwise ops, within 2 % of them (XLA
-    counts those, ``FlopCounterMode`` does not)."""
+    remat'd), so it is the port's at ``remat=True`` (4 forwards against
+    4), not at ``remat=False`` (3 and the CE's unembed against 4); its
+    prefill and train counts are the matmuls plus the elementwise ops,
+    within 2 % of them (XLA counts those, ``FlopCounterMode`` does
+    not)."""
     import dataclasses
     jcfg = jget("fedforecast-100m").reduced()
     tcfg = tget("fedforecast-100m").reduced()
@@ -214,7 +229,10 @@ def test_reference_cost_mode_caveats(monkeypatch):
     assert xla[2, "decode"] < hand[2, "decode"]
     assert (xla[4, "decode"] - xla[2, "decode"]
             < (hand[4, "decode"] - hand[2, "decode"]) / 2)
-    assert 0.70 < hand[2, "train"] / xla[2, "train"] < 0.80
+    assert 0.98 < hand[2, "train"] / xla[2, "train"] < 1.0
+    plain = hand_count(dataclasses.replace(tcfg, n_layers=2), "train", 8, 64,
+                       remat=False)
+    assert 0.70 < plain / xla[2, "train"] < 0.80
     assert 0.98 < hand[2, "prefill"] / xla[2, "prefill"] < 1.0
 
 
@@ -440,10 +458,14 @@ def test_moe_grouped_variant_runs_grouped():
     assert flag() == "16" and "REPRO_MOE_GROUPED" not in os.environ
     cfg = tget("olmoe-1b-7b").reduced()
     shape = InputShape("train", 64, 8, "train")
-    _, fn, args = variants.build_variant(cfg, shape, "moe_grouped")
+    # at remat=False the layers' dispatch buffers are live at the peak
+    # (at remat=True the peak is set outside the layers)
+    _, fn, args = variants.build_variant(
+        cfg, shape, "moe_grouped", model=dryrun._meta_model(cfg, remat=False))
     grouped = dryrun.count(fn, args)
     assert "REPRO_MOE_GROUPED" not in os.environ
-    base = _count(cfg, shape)
+    _, fn, args = dryrun.build_dryrun(cfg, shape, remat=False)
+    base = dryrun.count(fn, args)
     assert grouped["flops"] == base["flops"]
     assert grouped["temp_bytes"] != base["temp_bytes"]   # another dispatch
     rec = dryrun.measure(cfg, shape, variant="moe_grouped")

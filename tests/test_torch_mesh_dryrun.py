@@ -15,6 +15,8 @@ meta tensors) against the JAX package's small-mesh dry run.
   source, as ``tests/test_torch_dryrun.py`` does); the FedAvg variants
   on the pod mesh exchange across pods, the int8 one about 4x fewer
   bytes.
+* The MoE dispatch refuses tokens and expert weights of which some are
+  ``DTensor``s and some plain.
 * ``record_collectives``: explicit ``torch.distributed`` calls and
   DTensor's redistributions, each kind's ring traffic as the
   reference's ``analyze_collectives`` computes it from the same result
@@ -134,6 +136,26 @@ def test_fedavg_variants_cross_pods(world):
     with pytest.raises(ValueError, match="'pod' axis"):
         variants.build_variant(cfg, SMALL["train_4k"], "fedavg_sync",
                                mesh=world["one"])
+
+
+@pytest.mark.parametrize("placed", ["tokens", "experts"])
+def test_moe_dispatch_refuses_mixed_placements(world, placed):
+    """Tokens and expert weights are all ``DTensor``s (the sharded
+    dispatch) or all plain tensors; a mix would gather whole buffers, so
+    it raises."""
+    from repro_torch.models import moe
+    from repro_torch.sharding.specs import NamedSharding, P
+    cfg = tget("olmoe-1b-7b").reduced()
+    p = {k: v.to("meta") for k, v in moe.moe_init(
+        torch.Generator().manual_seed(0), cfg).items()}
+    x = torch.empty((2, 8, cfg.d_model), device="meta")
+    rep = NamedSharding(world["one"], P())
+    if placed == "tokens":
+        x = rep.place(x)
+    else:
+        p = {k: rep.place(v) for k, v in p.items()}
+    with pytest.raises(ValueError, match="all DTensors or all plain"):
+        moe.moe_apply(p, cfg, x)
 
 
 def test_record_collectives_sees_explicit_calls_and_pod_crossings(world):

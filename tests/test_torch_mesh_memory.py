@@ -1,0 +1,129 @@
+"""The port's programs over a mesh of ranks hold the reference's memory and
+collective bytes.
+
+The port runs its dry run (``repro_torch.launch.dryrun.measure``, meta
+tensors) as rank 0 of a fake world of 8 ranks on the (data 2, model 4)
+mesh, at full width. The reference runs its own
+(``repro.launch.dryrun.run_one`` without the cost pass) on a (2, 4) mesh
+of 8 forced host devices, in a subprocess that swaps
+``make_production_mesh`` for ``make_host_mesh(2, 4)``, as
+``tests/test_torch_mesh_pod.py`` runs its reference. Both run together.
+
+* decode_32k of fedforecast-100m and gemma2-9b: no all-gather whose
+  result has the size of a cache leaf (one layer's or the stack's), and
+  the collective bytes (the ring traffic summed) at most 4x the
+  reference's. The reference's decode peak holds a second, undonated
+  cache on this mesh, so the peaks are not compared here.
+* train_4k of fedforecast-100m and olmoe-1b-7b: rank 0's peak at most 2x
+  the reference's.
+"""
+import json
+import os
+import subprocess
+import sys
+import textwrap
+
+import pytest
+
+from repro_torch import tree as _tree
+from repro_torch.configs import get_config, get_shape
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import rank_mesh
+
+SRC = os.path.join(os.path.dirname(__file__), "..", "src")
+DECODES = ["fedforecast-100m", "gemma2-9b"]
+TRAINS = ["fedforecast-100m", "olmoe-1b-7b"]
+PAIRS = [(a, "decode_32k") for a in DECODES] + \
+    [(a, "train_4k") for a in TRAINS]
+COLL_FACTOR, PEAK_FACTOR = 4.0, 2.0
+
+REFERENCE = textwrap.dedent("""
+    import json, os, sys
+    os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
+    from repro.launch import dryrun
+    from repro.launch.mesh import make_host_mesh
+    dryrun.make_production_mesh = lambda multi_pod=False: make_host_mesh(
+        2, 4)
+    out = {}
+    for pair in sys.argv[2:]:
+        arch, shape = pair.split(":")
+        rec = dryrun.run_one(arch, shape, multi_pod=False,
+                             run_cost_pass=False, out_dir=sys.argv[1],
+                             verbose=False)
+        c = rec["collectives"]
+        out[pair] = {"peak": rec["per_device"]["peak_bytes"],
+                     "coll": c["ici_bytes"] + c["dcn_bytes"]}
+    print("RESULT" + json.dumps(out))
+""")
+
+
+def _cache_leaf_bytes(arch):
+    """The global bytes of each decode_32k cache leaf: (the stacked leaves,
+    one layer's leaves)."""
+    model = dryrun._meta_model(get_config(arch))
+    shape = get_shape("decode_32k")
+    cache = model.input_specs(shape)["cache"]
+    whole = [a.numel() * a.element_size() for a in _tree.leaves(cache)]
+    layer = [n // a.shape[0] for n, a in zip(whole, _tree.leaves(cache))]
+    return set(whole), set(layer)
+
+
+def _port(pair):
+    """Rank 0's peak (``measure``'s ``peak_bytes``), collective bytes and
+    the result bytes of each all-gather, of the dry run's step."""
+    arch, shape = pair
+    mesh = rank_mesh((2, 4), ("data", "model"))
+    _, fn, args = dryrun.build_dryrun(arch, shape, mesh=mesh)
+    counts = dryrun.count(fn, args)
+    c = counts["collectives"]
+    return {"peak": counts["argument_bytes"] + counts["temp_bytes"],
+            "coll": c["ici_bytes"] + c["dcn_bytes"],
+            "gathers": sorted({op["bytes"] for op in c["ops"]
+                               if op["kind"] == "all-gather"})}
+
+
+@pytest.fixture(scope="module")
+def measured(tmp_path_factory):
+    out_dir = tmp_path_factory.mktemp("reference_memory")
+    env = dict(os.environ, PYTHONPATH=SRC, JAX_PLATFORMS="cpu")
+    env.pop("XLA_FLAGS", None)
+    ref = subprocess.Popen(
+        [sys.executable, "-c", REFERENCE, str(out_dir)]
+        + [f"{a}:{s}" for a, s in PAIRS],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        with dryrun.fake_world(8):
+            port = {p: _port(p) for p in PAIRS}
+        stdout, stderr = ref.communicate(timeout=600)
+    finally:
+        if ref.poll() is None:
+            ref.kill()
+            ref.communicate()
+    assert ref.returncode == 0, stderr[-3000:]
+    line = [ln for ln in stdout.splitlines() if ln.startswith("RESULT")]
+    got = json.loads(line[0][len("RESULT"):])
+    return {p: (port[p], got[f"{p[0]}:{p[1]}"]) for p in PAIRS}
+
+
+@pytest.mark.parametrize("arch", DECODES)
+def test_decode_gathers_no_cache_leaf(measured, arch):
+    port, _ = measured[(arch, "decode_32k")]
+    whole, layer = _cache_leaf_bytes(arch)
+    assert port["gathers"], "the decode over ranks gathers something"
+    assert not set(port["gathers"]) & (whole | layer), (port["gathers"],
+                                                        whole, layer)
+    # what it gathers (the scores' softmax rows) is far below one
+    # layer's keys or values
+    assert max(port["gathers"]) < max(layer) / 10
+
+
+@pytest.mark.parametrize("arch", DECODES)
+def test_decode_collective_bytes_near_the_reference(measured, arch):
+    port, ref = measured[(arch, "decode_32k")]
+    assert 0 < port["coll"] <= COLL_FACTOR * ref["coll"], (port, ref)
+
+
+@pytest.mark.parametrize("arch", TRAINS)
+def test_train_peak_near_the_reference(measured, arch):
+    port, ref = measured[(arch, "train_4k")]
+    assert 0 < port["peak"] <= PEAK_FACTOR * ref["peak"], (port, ref)

@@ -16,9 +16,20 @@ windows, the encoder-decoder), from one seed on every rank:
 
 This is what the dry run over the production meshes runs, on real
 tensors: the sharding rules, the redistributions DTensor inserts, the
-MoE dispatch and ring writes that run on whole tensors
-(``replicated_call``) and the views gathered where a dim splits unevenly
-(``sharded_program``).
+sharded MoE dispatch, the shard-local ring writes and the views gathered
+where a dim splits unevenly (``sharded_program``).
+
+olmoe-1b-7b's train step with the group-local MoE dispatch
+(``REPRO_MOE_GROUPED=2``) over the ranks against one process, as above.
+
+A decode whose cache is sharded on its slots: reduced fedforecast-100m
+(three layers), the one-process prefill's cache placed by ``cache_pspecs``, two decode
+steps over the ranks against the same steps in one process. With batch
+4, ``pos`` has its slots over "model" (its innermost dim); with batch 1,
+which "data" does not divide, every leaf has its slots over "data" (the
+long-ring layout). Logits within 1e-4, caches within 1e-5, and
+``record_collectives`` sees no all-gather of a cache leaf's size (one
+layer's or the stack's).
 """
 import pytest
 
@@ -127,8 +138,113 @@ def _arch_checks(arch):
     return out
 
 
+SLOT_BATCHES = {"model": 4, "data": 1}
+
+
+def _slot_decode_checks(batch):
+    import dataclasses
+
+    import torch
+    from torch.distributed.tensor import Shard
+    from repro_torch import tree as _tree
+    from repro_torch.configs import get_config
+    from repro_torch.launch.hlo_analysis import record_collectives
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import build_model
+    from repro_torch.sharding import cache_pspecs, param_pspecs
+    from repro_torch.sharding.mesh import mesh_scope, sharded_program
+    from repro_torch.sharding.specs import NamedSharding, P, place
+
+    mesh = make_host_mesh(2, 2)
+    # three layers: no stacked leaf has the bytes of the (B, H, T) f32
+    # scores whose softmax rows the decode may gather
+    cfg = dataclasses.replace(get_config("fedforecast-100m").reduced(),
+                              n_layers=3)
+    model = build_model(cfg, device="cpu")
+    params = model.init(model.generator(0))
+    toks = _batch(cfg, 2)["tokens"][:batch]
+    with torch.no_grad():
+        logits, cache = model.prefill(params, {"tokens": toks}, S + 4)
+        d_serve = place(params, _tree.tree_map(
+            lambda s: NamedSharding(mesh, s),
+            param_pspecs(params, mesh, "serve")))
+        specs = cache_pspecs(cache, mesh, batch=batch)
+        d_cache = place(_tree.tree_map(lambda a: a.clone(), cache),
+                        _tree.tree_map(lambda s: NamedSharding(mesh, s),
+                                       specs))
+        slot_axes = [ax for ax, pl in zip(mesh.axis_names,
+                                          d_cache["attn"]["pos"].placements)
+                     if pl == Shard(2)]
+        leaf_bytes = set()
+        for a in _tree.leaves(cache):
+            n = a.numel() * a.element_size()
+            leaf_bytes |= {n, n // a.shape[0]}
+        lead = "data" if batch % 2 == 0 else None
+        tok = torch.argmax(logits[:, -1], -1)[:, None].to(torch.int32)
+        pos = torch.full((batch, 1), S, dtype=torch.int32)
+        errs, gathers = [], []
+        for i in range(2):
+            logits, cache = model.decode_step(params, cache, tok, pos + i)
+            with mesh_scope(mesh), sharded_program(_tree.leaves(d_serve)), \
+                    record_collectives() as rec:
+                d_logits, d_cache = model.decode_step(
+                    d_serve, d_cache,
+                    NamedSharding(mesh, P(lead, None)).place(tok),
+                    NamedSharding(mesh, P(lead, None)).place(pos + i))
+            gathers += [op["bytes"] for op in rec.summary()["ops"]
+                        if op["kind"] == "all-gather"]
+            errs.append(_max_err(d_logits, logits))
+            tok = torch.argmax(logits[:, -1], -1)[:, None].to(torch.int32)
+    return {"slot_axes": slot_axes, "decode": max(errs),
+            "cache": _max_err(d_cache, cache),
+            "leaf_gathers": sorted(set(gathers) & leaf_bytes)}
+
+
+def _grouped_train_checks():
+    """olmoe-1b-7b's train step with the group-local dispatch
+    (``REPRO_MOE_GROUPED=2``, one group a "data" rank) over the ranks
+    against the same dispatch in one process."""
+    import os
+    from repro_torch import tree as _tree
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.sharding import param_pspecs
+    from repro_torch.sharding.mesh import mesh_scope
+    from repro_torch.sharding.specs import NamedSharding, P, place
+    from repro_torch.training import make_train_step
+
+    mesh = make_host_mesh(2, 2)
+    cfg = get_config("olmoe-1b-7b").reduced()
+    model = build_model(cfg, device="cpu")
+    params = model.init(model.generator(0))
+    batch = _batch(cfg, 1)
+    opt = adamw(3e-4)
+    step = make_train_step(model, opt)
+    os.environ["REPRO_MOE_GROUPED"] = "2"
+    try:
+        ref = step(params, opt.init(params), batch)
+        d_params = place(params, _tree.tree_map(
+            lambda s: NamedSharding(mesh, s), param_pspecs(params, mesh)))
+        d_batch = {k: NamedSharding(mesh, P("data", None)).place(v)
+                   for k, v in batch.items()}
+        with mesh_scope(mesh):
+            got = step(d_params, opt.init(d_params), d_batch)
+    finally:
+        del os.environ["REPRO_MOE_GROUPED"]
+    return {"loss": abs(float(got[2]["loss"].full_tensor()
+                              - ref[2]["loss"])),
+            "params": _max_err(got[0], ref[0]),
+            "moments": _max_err(got[1]["m"], ref[1]["m"])}
+
+
 def _rank_checks(rank, world):
-    return {arch: _arch_checks(arch) for arch in ARCHS}
+    out = {arch: _arch_checks(arch) for arch in ARCHS}
+    out["grouped"] = _grouped_train_checks()
+    out["slots"] = {ax: _slot_decode_checks(b)
+                    for ax, b in SLOT_BATCHES.items()}
+    return out
 
 
 @pytest.fixture(scope="module")
@@ -150,3 +266,20 @@ def test_prefill_and_decode_over_ranks_match_one_process(world, arch):
         got = r[arch]
         assert got["prefill"] <= LOGIT_TOL and got["decode"] <= LOGIT_TOL, got
         assert got["cache"] <= CACHE_TOL, got
+
+
+@pytest.mark.parametrize("axis", sorted(SLOT_BATCHES))
+def test_decode_on_slot_sharded_cache_matches_and_gathers_no_leaf(world,
+                                                                   axis):
+    for r in world:
+        got = r["slots"][axis]
+        assert got["slot_axes"] == [axis], got
+        assert got["decode"] <= LOGIT_TOL and got["cache"] <= CACHE_TOL, got
+        assert got["leaf_gathers"] == [], got
+
+
+def test_grouped_moe_train_step_over_ranks_matches_one_process(world):
+    for r in world:
+        got = r["grouped"]
+        assert got["loss"] <= LOSS_TOL, got
+        assert got["params"] <= PARAM_TOL and got["moments"] <= PARAM_TOL, got
