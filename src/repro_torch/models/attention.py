@@ -13,6 +13,10 @@ Two execution paths for the softmax-attention core of a full sequence:
 Decode, cross-attention and MLA always take the plain path, as in the
 reference (MLA's q/k head dim, 96, differs from its v head dim, 64).
 
+Over a mesh of ranks a serve program's full-sequence attention (a
+prefill, an enc-dec's encoder) runs head-parallel on local tensors
+(``_gqa_over_ranks``, ``_mla_over_ranks``; ``sharding/serve.py``).
+
 KV caches are ring buffers carrying their own position array. The port
 writes them in place (``cache_write``), where the reference returns new
 arrays: a decode step then copies no cache. A write of more positions
@@ -35,6 +39,7 @@ from repro_torch import tree as _tree
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.models.layers import (apply_rope, checkpointed,
                                        dense_init, rms_norm, softcap)
+from repro_torch.sharding import serve as _serve
 from repro_torch.sharding.specs import (P, cache_full, constrain,
                                         replicated_call)
 
@@ -191,8 +196,13 @@ def _self_attend(cfg, q, k, v, positions, *, window: int, causal: bool,
 
 def gqa_self_attention(p: dict, cfg, x: torch.Tensor,
                        positions: torch.Tensor, *, window: int,
-                       causal: bool = True, impl: str = "xla"):
-    """Full-sequence self-attention (train / prefill)."""
+                       causal: bool = True, impl: str = "xla",
+                       serve: bool = False):
+    """Full-sequence self-attention (train / prefill). ``serve``: a serve
+    program's, head-parallel over ranks (``_gqa_over_ranks``)."""
+    if serve and _serve.over_ranks(x):
+        return _gqa_over_ranks(p, cfg, x, positions, window=window,
+                               causal=causal, impl=impl)[0]
     q, k, v = gqa_project_qkv(p, cfg, x, positions)
     out = _self_attend(cfg, q, k, v, positions, window=window, causal=causal,
                        impl=impl)
@@ -201,13 +211,80 @@ def gqa_self_attention(p: dict, cfg, x: torch.Tensor,
 
 def gqa_prefill(p: dict, cfg, x: torch.Tensor, positions: torch.Tensor, *,
                 window: int, cache_len: int, impl: str = "xla"):
-    """Full-sequence self-attention that also fills a fresh KV cache."""
-    q, k, v = gqa_project_qkv(p, cfg, x, positions)
-    out = _self_attend(cfg, q, k, v, positions, window=window, causal=True,
-                       impl=impl)
+    """Full-sequence self-attention that also fills a fresh KV cache;
+    head-parallel over ranks (``_gqa_over_ranks``)."""
+    if _serve.over_ranks(x):
+        y, k, v = _gqa_over_ranks(p, cfg, x, positions, window=window,
+                                  causal=True, impl=impl)
+    else:
+        q, k, v = gqa_project_qkv(p, cfg, x, positions)
+        y = gqa_out(p, _self_attend(cfg, q, k, v, positions, window=window,
+                                    causal=True, impl=impl))
     cache = gqa_cache_init(cfg, x.shape[0], cache_len, k.dtype, x.device)
     cache = cache_write(cache, k, v, positions)
-    return gqa_out(p, out), cache
+    return y, cache
+
+
+def _kv_for(k: torch.Tensor, lo: int, hi: int, group: int) -> torch.Tensor:
+    """The kv heads of q heads ``[lo, hi)`` (q head h reads kv head
+    h // group): a slice of ``k``'s heads when the span takes whole groups
+    or part of one, else one kv head a q head."""
+    klo, khi = lo // group, (hi - 1) // group + 1
+    n = khi - klo
+    per = (hi - lo) // n
+    if (hi - lo) % n == 0 and all((lo + i) // group - klo == i // per
+                                  for i in range(hi - lo)):
+        return k[:, :, klo:khi]
+    idx = torch.tensor([(lo + i) // group for i in range(hi - lo)],
+                       device=k.device)
+    return k.index_select(2, idx)
+
+
+def _gqa_over_ranks(p: dict, cfg, x, positions, *, window: int,
+                    causal: bool, impl: str):
+    """A serve program's self-attention over ranks, head-parallel over
+    "model" (``sharding/serve.py``): this rank's q heads from its columns
+    of ``wq``, keys and values gathered whole over "model", attention on
+    plain local tensors (K6 on the card for ``impl="kernel"``), and its
+    rows of ``wo``. Returns ``(y, k, v)``: ``y`` partial over "model" (the
+    bias on the group's first rank), ``k`` and ``v`` (B,S,Hkv,Dh) whole
+    over "model"."""
+    H, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    x = _serve.batch_only(x)
+    xl = x.to_local()
+    B, S, _ = xl.shape
+    dt = xl.dtype
+    lo, hi = _serve.span(H, x)
+    pos = _serve.local_rows(positions, x)
+    q = xl @ _serve.head_block(p["wq"], 1, H, Dh, x).to(dt)
+    k = _serve.whole(x @ p["wk"].to(dt))
+    v = _serve.whole(x @ p["wv"].to(dt))
+    if "bq" in p:
+        q = q + _serve.head_block(p["bq"], 0, H, Dh, x).to(dt)
+        k = k + _serve.full(p["bk"]).to(dt)
+        v = v + _serve.full(p["bv"]).to(dt)
+    q = q.reshape(B, S, hi - lo, Dh)
+    k = k.reshape(B, S, Hkv, Dh)
+    v = v.reshape(B, S, Hkv, Dh)
+    if "q_norm" in p:
+        q = rms_norm(q, _serve.full(p["q_norm"]), cfg.norm_eps)
+        k = rms_norm(k, _serve.full(p["k_norm"]), cfg.norm_eps)
+    q = apply_rope(q, pos, cfg.rope_theta)
+    k = apply_rope(k, pos, cfg.rope_theta)
+    wo = _serve.head_block(p["wo"], 0, H, Dh, x).to(dt)
+    if hi > lo:
+        out = _self_attend(cfg, q, _kv_for(k, lo, hi, H // Hkv),
+                           _kv_for(v, lo, hi, H // Hkv), pos, window=window,
+                           causal=causal, impl=impl)
+        y = out.reshape(B, S, (hi - lo) * Dh) @ wo
+    else:
+        y = torch.zeros((B, S, cfg.d_model), dtype=dt, device=xl.device)
+    if "bo" in p:
+        bo = _serve.full(p["bo"]).to(dt)
+        if _serve.is_model_rank0(x):
+            y = y + bo
+    return (_serve.partial(y, x), _serve.replicated(k, x),
+            _serve.replicated(v, x))
 
 
 # --- decode with ring-buffer cache ----------------------------------------
@@ -508,10 +585,57 @@ def mla_cache_init(cfg, batch: int, cache_len: int, dtype, device) -> dict:
     }
 
 
+def _mla_over_ranks(p: dict, cfg, x, positions, *, causal: bool = True):
+    """A serve program's MLA self-attention over ranks, head-parallel over
+    "model" as ``_gqa_over_ranks``: the q and kv latents gathered whole
+    over "model", this rank's heads expanded from its columns of ``w_uq``,
+    ``w_uk`` and ``w_uv``, its rows of ``wo``. Returns ``(y, c_kv,
+    k_rope)``: ``y`` partial over "model", the latents whole over it."""
+    m, H = cfg.mla, cfg.n_heads
+    dq = m.qk_nope_dim + m.qk_rope_dim
+    x = _serve.batch_only(x)
+    B, S, _ = x.to_local().shape
+    dt = x.dtype
+    lo, hi = _serve.span(H, x)
+    pos = _serve.local_rows(positions, x)
+    q_lat = rms_norm(_serve.whole(x @ p["w_dq"].to(dt)),
+                     _serve.full(p["q_norm"]), cfg.norm_eps)
+    dkv = _serve.whole(x @ p["w_dkv"].to(dt))
+    c_kv = rms_norm(dkv[..., :m.kv_lora_rank], _serve.full(p["kv_norm"]),
+                    cfg.norm_eps)
+    k_rope = apply_rope(dkv[:, :, None, m.kv_lora_rank:], pos,
+                        cfg.rope_theta)[:, :, 0, :]
+    w_uq = _serve.head_block(p["w_uq"], 1, H, dq, x).to(dt)
+    w_uk = _serve.head_block(p["w_uk"], 1, H, m.qk_nope_dim, x).to(dt)
+    w_uv = _serve.head_block(p["w_uv"], 1, H, m.v_head_dim, x).to(dt)
+    wo = _serve.head_block(p["wo"], 0, H, m.v_head_dim, x).to(dt)
+    n = hi - lo
+    if n:
+        q = (q_lat @ w_uq).reshape(B, S, n, dq)
+        q = torch.cat([q[..., :m.qk_nope_dim], apply_rope(
+            q[..., m.qk_nope_dim:], pos, cfg.rope_theta)], dim=-1)
+        k_nope = (c_kv @ w_uk).reshape(B, S, n, m.qk_nope_dim)
+        v = (c_kv @ w_uv).reshape(B, S, n, m.v_head_dim)
+        k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
+            B, S, n, m.qk_rope_dim)], dim=-1)
+        out = attend_masked(q, k, v, q_pos=pos, k_pos=pos,
+                            k_valid=torch.ones(pos.shape, dtype=torch.bool,
+                                               device=pos.device),
+                            causal=causal, window=0, scale=dq ** -0.5)
+        y = out.reshape(B, S, n * m.v_head_dim) @ wo
+    else:
+        y = torch.zeros((B, S, cfg.d_model), dtype=dt, device=q_lat.device)
+    return (_serve.partial(y, x), _serve.replicated(c_kv, x),
+            _serve.replicated(k_rope, x))
+
+
 def mla_prefill(p: dict, cfg, x: torch.Tensor, positions: torch.Tensor, *,
                 cache_len: int):
-    out = mla_self_attention(p, cfg, x, positions)
-    c_kv, k_rope = _mla_latents(p, cfg, x, positions)
+    if _serve.over_ranks(x):
+        out, c_kv, k_rope = _mla_over_ranks(p, cfg, x, positions)
+    else:
+        out = mla_self_attention(p, cfg, x, positions)
+        c_kv, k_rope = _mla_latents(p, cfg, x, positions)
     cache = mla_cache_init(cfg, x.shape[0], cache_len, c_kv.dtype, x.device)
     return out, _ring_write(cache, positions,
                             {"c_kv": c_kv, "k_rope": k_rope})

@@ -15,6 +15,7 @@ from repro_torch import tree as _tree
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import (checkpointed, mlp_apply, mlp_init,
                                        rms_norm)
+from repro_torch.sharding.serve import batch_only
 from repro_torch.sharding.specs import cache_full, placed_layers
 
 
@@ -36,22 +37,24 @@ def enc_block_init(gen: torch.Generator, cfg) -> dict:
     }
 
 
-def _enc_block(cfg, lp: dict, x, positions, impl: str):
+def _enc_block(cfg, lp: dict, x, positions, impl: str, serve: bool):
     h = rms_norm(x, lp["norm_attn"], cfg.norm_eps)
     x = x + attn.gqa_self_attention(lp["attn"], cfg, h, positions,
-                                    window=0, causal=False, impl=impl)
+                                    window=0, causal=False, impl=impl,
+                                    serve=serve)
     h = rms_norm(x, lp["norm_mlp"], cfg.norm_eps)
-    return x + mlp_apply(lp["mlp"], h)
+    return x + mlp_apply(lp["mlp"], batch_only(h) if serve else h)
 
 
 def encoder_apply(cfg, stacked: dict, x: torch.Tensor,
                   positions: torch.Tensor, *, impl: str = "xla",
-                  remat: bool = True):
+                  remat: bool = True, serve: bool = False):
     """With ``remat`` (and autograd recording) each layer is
-    checkpointed, as the reference's scan body."""
+    checkpointed, as the reference's scan body. ``serve``: a serve
+    program's encoder, head-parallel over ranks (``sharding/serve.py``)."""
     for lp in placed_layers(stacked):
         def body(x_, lp=lp):
-            return _enc_block(cfg, lp, x_, positions, impl)
+            return _enc_block(cfg, lp, x_, positions, impl, serve)
         x = checkpointed(body, x) if remat else body(x)
     return x
 
@@ -117,18 +120,19 @@ def decoder_fill_cross(cfg, stacked: dict, caches: dict,
 def decoder_decode(cfg, stacked: dict, x: torch.Tensor, caches: dict,
                    positions: torch.Tensor, enc_valid: torch.Tensor):
     """One-token decode through the stacked decoder layers; the self
-    caches are updated in place."""
+    caches are updated in place. Over ranks each normed input is whole
+    over "model" (``serve.batch_only``), as a serve program's."""
     for i in range(_n_layers(stacked)):
         lp = _tree.index(stacked, i)
         cache, orig = attn.layer_views(caches, i)
-        h = rms_norm(x, lp["norm_self"], cfg.norm_eps)
+        h = batch_only(rms_norm(x, lp["norm_self"], cfg.norm_eps))
         y, _ = attn.gqa_decode(lp["self"], cfg, h, cache["self"], positions,
                                window=0)
         attn.put_back(caches, i, cache, orig)
         x = x + y
-        h = rms_norm(x, lp["norm_cross"], cfg.norm_eps)
+        h = batch_only(rms_norm(x, lp["norm_cross"], cfg.norm_eps))
         x = x + attn.cross_attention(lp["cross"], cfg, h, cache["cross_k"],
                                      cache["cross_v"], enc_valid)
-        h = rms_norm(x, lp["norm_mlp"], cfg.norm_eps)
+        h = batch_only(rms_norm(x, lp["norm_mlp"], cfg.norm_eps))
         x = x + mlp_apply(lp["mlp"], h)
     return x, caches

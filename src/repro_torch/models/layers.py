@@ -15,6 +15,7 @@ from torch.distributed.tensor import (DTensor, Replicate, Shard,
 import torch.nn.functional as F
 
 from repro_torch.sharding.mesh import program_scope
+from repro_torch.sharding.serve import batch_only
 from repro_torch.sharding.specs import contiguous_stride
 
 
@@ -191,6 +192,17 @@ def _gold_logits(logits: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     return torch.sum(torch.where(hit, logits, 0.0), dim=-1)
 
 
+def _vocab_only(w):
+    """A ``DTensor`` unembed (D, V) kept split by vocab only: its d_model
+    dim gathered where FSDP splits it. A plain tensor as it is."""
+    if not isinstance(w, DTensor):
+        return w
+    pl = [p if isinstance(p, Shard) and p.dim == 1 else Replicate()
+          for p in w.placements]
+    return w if pl == list(w.placements) else w.redistribute(
+        w.device_mesh, pl)
+
+
 def chunked_softmax_xent(hidden: torch.Tensor, unembed: torch.Tensor,
                          labels: torch.Tensor, mask: torch.Tensor, *,
                          chunk: int = 512,
@@ -200,13 +212,18 @@ def chunked_softmax_xent(hidden: torch.Tensor, unembed: torch.Tensor,
     Logits are computed chunk by chunk over the sequence, so the peak
     logits buffer is (B, chunk, V); each chunk is checkpointed, as the
     reference's, so the backward keeps no chunk's logits either. The logsumexp runs over all ``unembed`` columns,
-    padded vocab ids included, as the reference's.
+    padded vocab ids included, as the reference's. Over ranks each hidden
+    chunk is whole but for its batch (``serve.batch_only``) and the
+    unembed split by vocab only (``_vocab_only``), so the logits come out
+    split by vocab and never partial: a partial (B, chunk, V) would cost
+    an all-reduce of the logits a chunk.
     """
     S = hidden.shape[1]
     chunk = min(chunk, S)
-    w = unembed.to(hidden.dtype)
+    w = _vocab_only(unembed.to(hidden.dtype))
 
     def chunk_loss(h, y, m):
+        h = batch_only(h)
         logits = softcap((h @ w).to(torch.float32), final_softcap)
         logz = _logsumexp(logits)
         gold = _gold_logits(logits, y)

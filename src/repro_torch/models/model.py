@@ -225,15 +225,16 @@ class Model:
                                   final_softcap=cfg.final_logit_softcap)
         return ce + aux, {"ce": ce, "aux": aux}
 
-    def _encode(self, params, frames):
-        """The encoder over the projected frames, final-normed."""
+    def _encode(self, params, frames, *, serve: bool = False):
+        """The encoder over the projected frames, final-normed; ``serve``:
+        a prefill's (``encdec.encoder_apply``)."""
         cfg = self.cfg
         x = self._features(frames)
         B, Se = x.shape[:2]
         x = x @ params["frontend_proj"].to(x.dtype)
         x = encdec.encoder_apply(cfg, params["enc_stack"], x,
                                  self._positions(B, Se), impl=self.impl,
-                                 remat=self.remat)
+                                 remat=self.remat, serve=serve)
         return rms_norm(x, params["enc_norm"], cfg.norm_eps)
 
     def _encdec_forward(self, params, batch):
@@ -283,7 +284,7 @@ class Model:
     def _encdec_prefill(self, params, batch, cache_len):
         """Encode the frames, fill every layer's cross K/V, and decode a
         bos token (id 0) at decoder position 0."""
-        enc_out = self._encode(params, batch["frames"])
+        enc_out = self._encode(params, batch["frames"], serve=True)
         B, Se = enc_out.shape[:2]
         caches = self._encdec_cache(B, cache_len, Se)
         caches = encdec.decoder_fill_cross(self.cfg, params["dec_stack"],

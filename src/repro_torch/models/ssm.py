@@ -5,9 +5,10 @@ Train/prefill uses the chunked SSD algorithm (quadratic intra-chunk
 attention form + linear inter-chunk state passing); decode is the
 O(1)-state recurrence. ``impl="kernel"`` routes the scan through K7
 (``kernels/ssd_scan``), the counterpart of the reference's
-``impl="pallas"``; ``impl="xla"`` runs the plain chunked form. The
-reference's ``REPRO_SSM_SHARD`` constraint is TPU mesh sharding and has
-no counterpart here.
+``impl="pallas"``; ``impl="xla"`` runs the plain chunked form. Over a
+mesh of ranks the ``ssm_shard`` variant's constraint (``_ssm_shard``)
+is the reference's ``REPRO_SSM_SHARD``; a prefill runs head-parallel and
+a decode on the cache's own blocks (``sharding/serve.py``).
 """
 from __future__ import annotations
 
@@ -15,11 +16,13 @@ import os
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.kernels.ssd_scan.ref import ssd_chunked
 from repro_torch.models.layers import dense_init, rms_norm
-from repro_torch.sharding.specs import P, constrain
+from repro_torch.sharding import serve as _serve
+from repro_torch.sharding.specs import P, constrain, place_cache
 
 
 def ssm_init(gen: torch.Generator, cfg) -> dict:
@@ -126,7 +129,10 @@ def ssm_forward(p: dict, cfg, x: torch.Tensor, *,
 
 
 def ssm_prefill(p: dict, cfg, x: torch.Tensor, *, impl: str = "xla"):
-    """Like ``ssm_forward`` but also returns the decode cache."""
+    """Like ``ssm_forward`` but also returns the decode cache;
+    head-parallel over ranks (``_ssm_prefill_over_ranks``)."""
+    if _serve.over_ranks(x):
+        return _ssm_prefill_over_ranks(p, cfg, x, impl=impl)
     S = x.shape[1]
     z, xbc_raw, xh, B, C, dt, A = _scan_inputs(p, cfg, x)
     y, state = _scan(cfg, xh, dt, A, B, C, impl)
@@ -134,6 +140,69 @@ def ssm_prefill(p: dict, cfg, x: torch.Tensor, *, impl: str = "xla"):
     # conv state = last (d_conv-1) *pre-activation* xBC rows
     tail = xbc_raw[:, S - (cfg.ssm.d_conv - 1):, :].contiguous()
     return out, {"conv": tail, "state": state}
+
+
+def _ssm_prefill_over_ranks(p: dict, cfg, x, *, impl: str):
+    """A serve program's SSM prefill over ranks, head-parallel over "model"
+    (``sharding/serve.py``): this rank's z, x and dt columns of
+    ``in_proj`` for its heads and the B and C columns every head shares
+    (the weight gathered once), the conv and the scan (K7 on the card
+    for ``impl="kernel"``) on its heads, the gated norm's mean square
+    summed over "model", its rows of ``out_proj``. The conv tail and the
+    state come back placed as the cache places them."""
+    s = cfg.ssm
+    H, Pd, N = cfg.n_ssm_heads, s.d_head, s.d_state
+    d_inner = cfg.d_inner_ssm
+    x = _serve.batch_only(x)
+    xl = x.to_local()
+    b, S, _ = xl.shape
+    dt_ = xl.dtype
+    lo, hi = _serve.span(H, x)
+    n = hi - lo
+    xs = (d_inner + lo * Pd, d_inner + hi * Pd)
+    bc = (2 * d_inner, 2 * d_inner + 2 * N)
+    w_z, w_x, w_bc, w_dt = _serve.sections(p["in_proj"].to(dt_), 1, [
+        (lo * Pd, hi * Pd), xs, bc,
+        (2 * d_inner + 2 * N + lo, 2 * d_inner + 2 * N + hi)])
+    conv_ranges = [(lo * Pd, hi * Pd), (d_inner, d_inner + 2 * N)]
+    cw = torch.cat(_serve.sections(p["conv_w"], 1, conv_ranges), dim=1)
+    cb = torch.cat(_serve.sections(p["conv_b"], 0, conv_ranges), dim=0)
+    z = xl @ w_z
+    xbc_raw = torch.cat([xl @ w_x, xl @ w_bc], dim=-1)
+    dt = F.softplus((xl @ w_dt).to(torch.float32)
+                    + _serve.full(p["dt_bias"])[lo:hi])
+    xbc = _causal_conv(xbc_raw, cw, cb)
+    xh = xbc[..., :n * Pd].reshape(b, S, n, Pd)
+    B = xbc[..., n * Pd:n * Pd + N]
+    C = xbc[..., n * Pd + N:]
+    A = (-torch.exp(_serve.full(p["A_log"])[lo:hi])).to(torch.float32)
+    if n:
+        y, state = _scan(cfg, xh, dt, A, B, C, impl)
+    else:
+        y = torch.zeros((b, S, 0, Pd), dtype=torch.float32,
+                        device=xl.device)
+        state = torch.zeros((b, 0, Pd, N), dtype=torch.float32,
+                            device=xl.device)
+    y = y + _serve.full(p["D"]).to(torch.float32)[lo:hi, None] \
+        * xh.to(torch.float32)
+    u = (y.reshape(b, S, n * Pd).to(dt_) * F.silu(z)).to(torch.float32)
+    # the gated RMSNorm over all d_inner channels: its mean square summed
+    # over "model", then each rank scales its own channels
+    var = _serve.reduced(torch.sum(torch.square(u), dim=-1), x) / d_inner
+    w = _serve.full(p["norm_w"]).to(torch.float32)[lo * Pd:hi * Pd]
+    u = (u * torch.rsqrt(var[..., None] + cfg.norm_eps) * (1.0 + w)).to(dt_)
+    out = u @ _serve.head_block(p["out_proj"], 0, H, Pd, x).to(dt_)
+    # conv state = last (d_conv-1) *pre-activation* xBC rows, every channel
+    K1 = s.d_conv - 1
+    tail_x = _serve.whole(_serve.heads(
+        xbc_raw[:, S - K1:, :n * Pd].reshape(b, K1, n, Pd).contiguous(), x,
+        2, H)).reshape(b, K1, d_inner)
+    tail = torch.cat([tail_x, xbc_raw[:, S - K1:, n * Pd:]], dim=-1)
+    return _serve.partial(out, x), {
+        "conv": place_cache(_serve.replicated(tail.contiguous(), x),
+                            batch=x.shape[0]),
+        "state": place_cache(_serve.heads(state, x, 1, H),
+                             batch=x.shape[0])}
 
 
 # ---------------------------------------------------------------------------
@@ -152,7 +221,10 @@ def ssm_cache_init(cfg, batch: int, dtype, device) -> dict:
 
 def ssm_decode(p: dict, cfg, x: torch.Tensor, cache: dict):
     """x: (B,1,D). Returns (y (B,1,D), cache), the cache's conv window
-    and state updated in place."""
+    and state updated in place; over ranks each rank updates its own
+    blocks of them (``_ssm_decode_over_ranks``)."""
+    if _serve.over_ranks(x) and _local_cache(x, cache):
+        return _ssm_decode_over_ranks(p, cfg, x, cache)
     s = cfg.ssm
     H, P = cfg.n_ssm_heads, s.d_head
     b = x.shape[0]
@@ -180,4 +252,78 @@ def ssm_decode(p: dict, cfg, x: torch.Tensor, cache: dict):
     y = (y @ p["out_proj"].to(dt_))[:, None, :]
     cache["conv"].copy_(window[:, 1:])
     cache["state"].copy_(h)
+    return y, cache
+
+
+def _local_cache(x, cache: dict) -> bool:
+    """Over ranks, the decode runs on the cache's own blocks when both
+    leaves are placed and each holds the same rows of the batch as
+    ``x``."""
+    if not all(isinstance(cache[k], DTensor) for k in ("conv", "state")):
+        return False
+    shape, off = _serve.local_block(x, _serve.rows_placement(x))
+    return all(_serve.local_block(leaf)[0][0] == shape[0]
+               and _serve.local_block(leaf)[1][0] == off[0]
+               for leaf in (cache["conv"], cache["state"]))
+
+
+def _ssm_decode_over_ranks(p: dict, cfg, x, cache: dict):
+    """``ssm_decode`` on each rank's blocks of the cache, which stay where
+    they are (XLA keeps the state local): the input projection gathered
+    whole over "model" (a few hundred bytes a row), this rank's channels
+    of the conv window, the conv's output gathered, this rank's block of
+    the state, its output summed over "model" where the state's d_state
+    is split (a partial sum) and gathered where its heads or head dim
+    are."""
+    s = cfg.ssm
+    H, Pd, N = cfg.n_ssm_heads, s.d_head, s.d_state
+    d_inner = cfg.d_inner_ssm
+    conv, state = cache["conv"], cache["state"]
+    mesh = conv.device_mesh
+    x = _serve.batch_only(x)
+    b = x.to_local().shape[0]
+    dt_ = x.dtype
+    proj = _serve.whole(x[:, 0] @ p["in_proj"].to(dt_))
+    z, xbc, dt = _split_proj(cfg, proj)
+    # this rank's channels of the causal conv over [conv_state ; new],
+    # the window's positions gathered where they are split
+    (_, kn, cn), (_, k0, c0) = _serve.local_block(conv)
+    cl = conv.to_local()
+    rows = cl if kn == conv.shape[1] else conv.redistribute(mesh, [
+        Replicate() if pl.is_shard(1) else pl
+        for pl in conv.placements]).to_local()
+    window = torch.cat([rows, xbc[:, None, c0:c0 + cn]], dim=1)
+    w = _serve.sections(p["conv_w"].to(dt_), 1, [(c0, c0 + cn)])[0]
+    bias = _serve.sections(p["conv_b"].to(dt_), 0, [(c0, c0 + cn)])[0]
+    conv_out = F.silu(torch.einsum("bkc,kc->bc", window, w) + bias)
+    xbc = _serve.whole(DTensor.from_local(
+        conv_out, mesh, [Shard(1) if pl.is_shard(2) else
+                         (Replicate() if pl.is_shard(1) else pl)
+                         for pl in conv.placements], run_check=False,
+        shape=(x.shape[0], conv.shape[2]), stride=(conv.shape[2], 1)))
+    xh = xbc[..., :d_inner].reshape(b, H, Pd)
+    B = xbc[..., d_inner:d_inner + N]
+    C = xbc[..., d_inner + N:]
+    dt = F.softplus(dt.to(torch.float32) + _serve.full(p["dt_bias"]))
+    dA = torch.exp(dt * -torch.exp(_serve.full(p["A_log"])))
+    # this rank's block of the state: (b, h, p, n) sliced as it is placed
+    (_, hn, pn, nn), (_, h0, p0, n0) = _serve.local_block(state)
+    hs, ps, ns = slice(h0, h0 + hn), slice(p0, p0 + pn), slice(n0, n0 + nn)
+    sl = state.to_local()
+    h = sl * dA[:, hs, None, None] + torch.einsum(
+        "bh,bhp,bn->bhpn", dt[:, hs], xh[:, hs, ps].to(torch.float32),
+        B[:, ns].to(torch.float32))
+    y = torch.einsum("bhpn,bn->bhp", h, C[:, ns].to(torch.float32))
+    y = _serve.whole(DTensor.from_local(
+        y, mesh, [Partial() if pl.is_shard(3) else
+                  (pl if pl.is_shard() else Replicate())
+                  for pl in state.placements], run_check=False,
+        shape=(x.shape[0], H, Pd), stride=(H * Pd, Pd, 1)))
+    y = y + _serve.full(p["D"]).to(torch.float32)[:, None] \
+        * xh.to(torch.float32)
+    y = y.reshape(b, d_inner).to(dt_)
+    y = rms_norm(y * F.silu(z), _serve.full(p["norm_w"]), cfg.norm_eps)
+    y = (_serve.replicated(y, x) @ p["out_proj"].to(dt_))[:, None, :]
+    cl.copy_(window[:, 1 + k0:1 + k0 + kn])
+    sl.copy_(h)
     return y, cache

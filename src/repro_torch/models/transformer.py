@@ -25,6 +25,7 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (checkpointed, mlp_apply, mlp_init,
                                        rms_norm)
+from repro_torch.sharding.serve import batch_only
 from repro_torch.sharding.specs import P, constrain, placed_layers
 
 
@@ -66,15 +67,19 @@ def block_init(gen: torch.Generator, cfg) -> dict:
     return p
 
 
-def _ffn(cfg, p: dict, x: torch.Tensor):
-    """The block's second half: (x, aux_loss of a MoE router or None)."""
+def _ffn(cfg, p: dict, x: torch.Tensor, *, serve: bool = False):
+    """The block's second half: (x, aux_loss of a MoE router or None).
+    ``serve``: a serve program's, whose normed input is whole over
+    "model" over ranks (``serve.batch_only``): the Megatron MLP, one
+    reduction of its output."""
     if "moe" in p:
+        h = rms_norm(x, p["norm_mlp"], cfg.norm_eps)
         y, aux = moe_mod.moe_apply(p["moe"], cfg,
-                                   rms_norm(x, p["norm_mlp"], cfg.norm_eps))
+                                   batch_only(h) if serve else h)
         return x + y, aux
     if "mlp" in p:
         h = rms_norm(x, p["norm_mlp"], cfg.norm_eps)
-        return x + mlp_apply(p["mlp"], h), None
+        return x + mlp_apply(p["mlp"], batch_only(h) if serve else h), None
     return x, None
 
 
@@ -128,7 +133,7 @@ def block_decode(cfg, p: dict, x: torch.Tensor, cache: dict,
     """One-token decode. x: (B,1,D). Returns (x, cache), the cache updated
     in place."""
     kind = cfg.block_kind
-    h = rms_norm(x, p["norm_attn"], cfg.norm_eps)
+    h = batch_only(rms_norm(x, p["norm_attn"], cfg.norm_eps))
     if kind == BLOCK_SSM:
         y, _ = ssm_mod.ssm_decode(p["ssm"], cfg, h, cache["ssm"])
         x = x + y
@@ -144,14 +149,16 @@ def block_decode(cfg, p: dict, x: torch.Tensor, cache: dict,
         y, _ = attn.gqa_decode(p["attn"], cfg, h, cache["attn"], positions,
                                window=window)
         x = x + y
-    return _ffn(cfg, p, x)[0], cache
+    return _ffn(cfg, p, x, serve=True)[0], cache
 
 
 def block_prefill(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor,
                   window: int, cache_len: int, *, impl: str = "xla"):
-    """Full-sequence pass that also produces this block's decode cache."""
+    """Full-sequence pass that also produces this block's decode cache.
+    Over ranks its normed stream is whole over "model" and each layer
+    head-parallel (``sharding/serve.py``), as a serve program's."""
     kind = cfg.block_kind
-    h = rms_norm(x, p["norm_attn"], cfg.norm_eps)
+    h = batch_only(rms_norm(x, p["norm_attn"], cfg.norm_eps))
     cache = {}
     if kind == BLOCK_SSM:
         y, cache["ssm"] = ssm_mod.ssm_prefill(p["ssm"], cfg, h, impl=impl)
@@ -171,7 +178,7 @@ def block_prefill(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor,
                                             window=window,
                                             cache_len=cache_len, impl=impl)
         x = x + y
-    return _ffn(cfg, p, x)[0], cache
+    return _ffn(cfg, p, x, serve=True)[0], cache
 
 
 def stack_init(gen: torch.Generator, cfg, n_layers: int) -> dict:

@@ -27,7 +27,7 @@ from dataclasses import dataclass
 import torch
 
 from repro_torch import tree as _tree
-from repro_torch.sharding.mesh import current_mesh
+from repro_torch.sharding.mesh import Mesh, current_mesh
 
 # param-name -> (tp_dim, fsdp_dim) counted from the *end* of the shape
 # (so stacked (L, ...) leading axes are ignored)
@@ -114,24 +114,42 @@ def cache_pspecs(cache_like, mesh, *, batch: int):
     """Decode-cache specs: the batch dim (axis 1, after the layer axis)
     over "data" when it divides, else the sequence dim (axis 2); the
     innermost dim that divides over "model"."""
+    return _tree.tree_map(
+        lambda leaf: _cache_spec(tuple(leaf.shape), mesh, batch), cache_like)
+
+
+def _cache_spec(shape, mesh, batch: int) -> PartitionSpec:
+    """``cache_pspecs``'s spec of a stacked leaf of ``shape``."""
     data = _axis_size(mesh, "data")
     model = _axis_size(mesh, "model")
+    nd = len(shape)
+    s = [None] * nd
+    if nd >= 2 and shape[1] == batch and batch % data == 0 and data > 1:
+        s[1] = "data"
+    elif nd >= 3 and shape[2] % data == 0 and data > 1:
+        s[2] = "data"                         # sequence dim (ring cache)
+    for d in range(nd - 1, 1, -1):            # innermost: try model axis
+        if s[d] is None and shape[d] % model == 0 and model > 1:
+            s[d] = "model"
+            break
+    return P(*s)
 
-    def spec(leaf):
-        shape = tuple(leaf.shape)
-        nd = len(shape)
-        s = [None] * nd
-        if nd >= 2 and shape[1] == batch and batch % data == 0 and data > 1:
-            s[1] = "data"
-        elif nd >= 3 and shape[2] % data == 0 and data > 1:
-            s[2] = "data"                     # sequence dim (ring cache)
-        for d in range(nd - 1, 1, -1):        # innermost: try model axis
-            if s[d] is None and shape[d] % model == 0 and model > 1:
-                s[d] = "model"
-                break
-        return P(*s)
 
-    return _tree.tree_map(spec, cache_like)
+def cache_placements(shape, mesh, *, batch: int) -> list:
+    """The DTensor placements on ``mesh`` (over ranks) of a one-layer cache
+    leaf of ``shape``: those ``cache_pspecs`` gives the stacked leaf."""
+    spec = _cache_spec((1,) + tuple(int(n) for n in shape), mesh, batch)
+    return placements(P(*spec[1:]), mesh)
+
+
+def place_cache(leaf, *, batch: int):
+    """A one-layer cache leaf that a prefill computed (a ``DTensor``)
+    redistributed to its ``cache_placements``; a plain leaf as it is."""
+    from torch.distributed.tensor import DTensor
+    if not isinstance(leaf, DTensor):
+        return leaf
+    return leaf.redistribute(leaf.device_mesh, cache_placements(
+        leaf.shape, Mesh.over_ranks(leaf.device_mesh), batch=batch))
 
 
 def cache_full(shape, fill, *, dtype, device, batch: int) -> torch.Tensor:
@@ -147,8 +165,7 @@ def cache_full(shape, fill, *, dtype, device, batch: int) -> torch.Tensor:
     from torch.distributed.tensor import DTensor
     from torch.distributed.tensor._utils import \
         compute_local_shape_and_global_offset
-    stacked = torch.empty((1,) + shape, device="meta")
-    pl = placements(P(*cache_pspecs(stacked, mesh, batch=batch)[1:]), mesh)
+    pl = cache_placements(shape, mesh, batch=batch)
     local, _ = compute_local_shape_and_global_offset(shape,
                                                      mesh.device_mesh, pl)
     return DTensor.from_local(

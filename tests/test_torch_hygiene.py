@@ -1,6 +1,7 @@
 """Import and device hygiene of the PyTorch port.
 
-The port and ``chip_smoke.py`` import neither JAX nor anything of the
+The port, ``chip_smoke.py`` and the examples' twins
+(``examples/*_torch.py``) import neither JAX nor anything of the
 ``repro`` package, and its entry points run on CUDA unless the caller
 asks for the CPU: without CUDA they raise instead of falling back.
 """
@@ -49,10 +50,9 @@ def test_sources_name_no_jax_and_no_repro():
     bad = re.compile(r"^\s*(import\s+jax|from\s+jax|import\s+repro\.|"
                      r"from\s+repro\.|from\s+repro\s+import|import\s+repro\s*$)",
                      re.M)
-    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                         ROOT / "examples" /
-                                         "quickstart_torch.py"]
-    assert len(files) > 20
+    examples = sorted((ROOT / "examples").glob("*_torch.py"))
+    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"] + examples
+    assert len(files) > 20 and len(examples) >= 4
     for path in files:
         hits = bad.findall(path.read_text())
         assert not hits, f"{path}: {hits}"

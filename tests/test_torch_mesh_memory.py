@@ -16,7 +16,26 @@ of 8 forced host devices, in a subprocess that swaps
   cache on this mesh, so the peaks are not compared here.
 * train_4k of fedforecast-100m and olmoe-1b-7b: rank 0's peak at most 2x
   the reference's.
+
+On a (data 4, model 16) mesh (64 fake ranks; the reference on 64 forced
+host devices, with its cost pass, which unrolls the prefill's layer scan
+and so counts every layer's collectives), at full width with both sides
+cut to two layers (``dataclasses.replace(cfg, n_layers=2)`` patched into
+both ``get_config``s): 16 does not divide internvl2-2b's 8 kv heads nor
+minicpm3-4b's 40 heads, and each "data" group serves 8 of the 32
+prompts, so the batch cannot split over "model" either (on (1, 16) and
+(2, 16) it does, and the fault does not show):
+
+* prefill_32k of internvl2-2b and minicpm3-4b: rank 0's peak at most 2x
+  and its collective bytes at most 4x the reference's;
+* decode_32k of mamba2-780m and minicpm3-4b: no all-gather of a cache
+  leaf's size, and the collective bytes at most 4x the reference's or
+  under 50 MB. The reference's decode scan is rolled even in its cost
+  pass (``repro/models/transformer.py``'s ``stack_decode`` passes no
+  ``unroll``), so its decode bytes are one layer's whatever the depth:
+  checked here at two and four layers.
 """
+import dataclasses
 import json
 import os
 import subprocess
@@ -36,6 +55,35 @@ TRAINS = ["fedforecast-100m", "olmoe-1b-7b"]
 PAIRS = [(a, "decode_32k") for a in DECODES] + \
     [(a, "train_4k") for a in TRAINS]
 COLL_FACTOR, PEAK_FACTOR = 4.0, 2.0
+WIDE = (4, 16)
+WIDE_LAYERS = 2
+WIDE_PAIRS = [("internvl2-2b", "prefill_32k"), ("minicpm3-4b", "prefill_32k"),
+              ("mamba2-780m", "decode_32k"), ("minicpm3-4b", "decode_32k")]
+SMALL_DECODE = 50e6
+
+REFERENCE_WIDE = textwrap.dedent("""
+    import dataclasses, json, os, sys
+    data, model, layers = (int(v) for v in sys.argv[2:5])
+    os.environ["XLA_FLAGS"] = (
+        f"--xla_force_host_platform_device_count={data * model}")
+    from repro.launch import dryrun
+    from repro.launch.mesh import make_host_mesh
+    dryrun.make_production_mesh = lambda multi_pod=False: make_host_mesh(
+        data, model)
+    get_config = dryrun.get_config
+    out = {}
+    for pair in sys.argv[5:]:
+        arch, shape, n = pair.split(":")
+        dryrun.get_config = lambda a, n=int(n): dataclasses.replace(
+            get_config(a), n_layers=n)
+        rec = dryrun.run_one(arch, shape, multi_pod=False,
+                             run_cost_pass=True, out_dir=sys.argv[1],
+                             verbose=False)
+        c = rec["collectives"]
+        out[pair] = {"peak": rec["per_device"]["peak_bytes"],
+                     "coll": c["ici_bytes"] + c["dcn_bytes"]}
+    print("RESULT" + json.dumps(out))
+""")
 
 REFERENCE = textwrap.dedent("""
     import json, os, sys
@@ -57,10 +105,14 @@ REFERENCE = textwrap.dedent("""
 """)
 
 
-def _cache_leaf_bytes(arch):
+def _cut(arch, n_layers=WIDE_LAYERS):
+    return dataclasses.replace(get_config(arch), n_layers=n_layers)
+
+
+def _cache_leaf_bytes(arch, cfg=None):
     """The global bytes of each decode_32k cache leaf: (the stacked leaves,
     one layer's leaves)."""
-    model = dryrun._meta_model(get_config(arch))
+    model = dryrun._meta_model(get_config(arch) if cfg is None else cfg)
     shape = get_shape("decode_32k")
     cache = model.input_specs(shape)["cache"]
     whole = [a.numel() * a.element_size() for a in _tree.leaves(cache)]
@@ -68,12 +120,13 @@ def _cache_leaf_bytes(arch):
     return set(whole), set(layer)
 
 
-def _port(pair):
+def _port(pair, sizes=(2, 4), cfg=None):
     """Rank 0's peak (``measure``'s ``peak_bytes``), collective bytes and
     the result bytes of each all-gather, of the dry run's step."""
     arch, shape = pair
-    mesh = rank_mesh((2, 4), ("data", "model"))
-    _, fn, args = dryrun.build_dryrun(arch, shape, mesh=mesh)
+    mesh = rank_mesh(sizes, ("data", "model"))
+    _, fn, args = dryrun.build_dryrun(arch if cfg is None else cfg, shape,
+                                      mesh=mesh)
     counts = dryrun.count(fn, args)
     c = counts["collectives"]
     return {"peak": counts["argument_bytes"] + counts["temp_bytes"],
@@ -127,3 +180,57 @@ def test_decode_collective_bytes_near_the_reference(measured, arch):
 def test_train_peak_near_the_reference(measured, arch):
     port, ref = measured[(arch, "train_4k")]
     assert 0 < port["peak"] <= PEAK_FACTOR * ref["peak"], (port, ref)
+
+
+@pytest.fixture(scope="module")
+def measured_wide(tmp_path_factory):
+    out_dir = tmp_path_factory.mktemp("reference_memory_wide")
+    env = dict(os.environ, PYTHONPATH=SRC, JAX_PLATFORMS="cpu")
+    env.pop("XLA_FLAGS", None)
+    pairs = [f"{a}:{s}:{WIDE_LAYERS}" for a, s in WIDE_PAIRS]
+    pairs.append(f"mamba2-780m:decode_32k:{2 * WIDE_LAYERS}")
+    ref = subprocess.Popen(
+        [sys.executable, "-c", REFERENCE_WIDE, str(out_dir)]
+        + [str(n) for n in WIDE] + [str(WIDE_LAYERS)] + pairs,
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        with dryrun.fake_world(WIDE[0] * WIDE[1]):
+            port = {p: _port(p, WIDE, _cut(p[0])) for p in WIDE_PAIRS}
+        stdout, stderr = ref.communicate(timeout=600)
+    finally:
+        if ref.poll() is None:
+            ref.kill()
+            ref.communicate()
+    assert ref.returncode == 0, stderr[-3000:]
+    line = [ln for ln in stdout.splitlines() if ln.startswith("RESULT")]
+    got = json.loads(line[0][len("RESULT"):])
+    out = {p: (port[p], got[f"{p[0]}:{p[1]}:{WIDE_LAYERS}"])
+           for p in WIDE_PAIRS}
+    out["deeper"] = got[f"mamba2-780m:decode_32k:{2 * WIDE_LAYERS}"]
+    return out
+
+
+@pytest.mark.parametrize("arch", ["internvl2-2b", "minicpm3-4b"])
+def test_prefill_where_heads_do_not_divide_model_near_the_reference(
+        measured_wide, arch):
+    port, ref = measured_wide[(arch, "prefill_32k")]
+    assert 0 < port["peak"] <= PEAK_FACTOR * ref["peak"], (port, ref)
+    assert 0 < port["coll"] <= COLL_FACTOR * ref["coll"], (port, ref)
+
+
+@pytest.mark.parametrize("arch", ["mamba2-780m", "minicpm3-4b"])
+def test_decode_on_a_model_16_mesh_keeps_the_cache_local(measured_wide,
+                                                         arch):
+    port, ref = measured_wide[(arch, "decode_32k")]
+    whole, layer = _cache_leaf_bytes(arch, _cut(arch))
+    assert not set(port["gathers"]) & (whole | layer), (port["gathers"],
+                                                        whole, layer)
+    assert port["coll"] <= max(COLL_FACTOR * ref["coll"], SMALL_DECODE), (
+        port, ref)
+
+
+def test_reference_decode_bytes_count_one_layer(measured_wide):
+    """The reference's decode collectives do not grow with its depth: its
+    layer scan is counted once (a caveat of the comparison above)."""
+    _, ref = measured_wide[("mamba2-780m", "decode_32k")]
+    assert measured_wide["deeper"]["coll"] == ref["coll"] > 0
