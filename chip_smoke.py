@@ -63,6 +63,19 @@ Phases (every failed check exits non-zero):
    seconds by telemetry span (``phase:*``, ``client.*``,
    ``kernel:masked_sum*``), the board's bytes and the host codec seconds
    of one 465.6 MB message.
+5b'. ``checkpoint``: ``save_checkpoint`` of ``fl run``'s last committed
+   global (T = 116,411,136 f32, 465.6 MB, on the card) with metadata
+   ``{"round", "run_id", "contract_id"}`` under ``build/``, then
+   ``load_checkpoint`` onto the card; the same for a bf16 copy of it (a
+   tree the reference's loader rejects). Gates: the manifest's digest is
+   the store's key and the metadata chain's ``model`` record for that
+   round, every loaded leaf bitwise equal to the saved one and on the
+   card, the files deleted after. Then the pytree-level secure
+   aggregation: ``mask_update`` of each of phase 4's trained silos (the
+   phase's secret, cohort ``sorted(SILOS)``, the default scale), whose
+   packed buffer must be bitwise phase 4's masked buffer, and
+   ``aggregate_masked`` of the three (K1), within 1e-6 of the plain
+   mean. Prints save and load seconds and MB/s and the ``.npz`` bytes.
 5c. ``fleet``: ``windco``'s ``InnerRoundEngine`` driven directly over a
    10,000-device fleet (dropout 0.05, clip 15.0), two inner rounds at
    device cohorts 8 and 16, each device 3 AdamW steps of 8 x 256 from
@@ -242,15 +255,16 @@ the path). Two launches must agree bitwise.
 
 Launch counters are reset before phase 4 and read after phase 5 (K1 and
 K2 must have run), reset before phase 5b and read after it (K1 must have
-run), reset before 5c and read after 5d (the ``fleet`` path: K1 must
-have run), reset before 5e and read after it (the ``async`` path: no
-kernel), reset before 5f and read after it (the ``train pod`` path: no
-kernel), reset before 5g and read after it (the ``train sim`` path: K1
-must have run); 5h reads the counters around each checked split call and
-leaves its timing calls out (the ``agg split`` path: K1, K2, K3 and K4
-in both variants, once a shard); 5i reads them around each split sink
-(the ``mesh`` path: K1, K3 and K4 once a slab) and checks that its pod
-run launches none;
+run), reset before 5b' and read after it (the ``pytree`` path: K1
+exactly once, nothing else), reset before 5c and read after 5d (the
+``fleet`` path: K1 must have run), reset before 5e and read after it
+(the ``async`` path: no kernel), reset before 5f and read after it (the
+``train pod`` path: no kernel), reset before 5g and read after it (the
+``train sim`` path: K1 must have run); 5h reads the counters around
+each checked split call and leaves its timing calls out (the ``agg
+split`` path: K1, K2, K3 and K4 in both variants, once a shard); 5i
+reads them around each split sink (the ``mesh`` path: K1, K3 and K4
+once a slab) and checks that its pod run launches none;
 reset again before phase 6a and read after 6e (K3, K4
 in both variants, K5 and K1 must have run), reset before phase 7b and
 read after it (the ``threefry`` path: K1 must have run), and reset
@@ -258,7 +272,7 @@ before phase 8's
 timed serve run and read after it (K6's tensor-core kernel and K7 once a
 layer, K6's f32 kernel never), and around each timed generate of phase
 9 (the ``zoo`` path, summed); the kernels line gives the sum of the
-twelve paths; phase 10 launches no kernel (meta tensors). Each phase
+thirteen paths; phase 10 launches no kernel (meta tensors). Each phase
 prints its seconds and peak device memory. The line before the last is
 the ``kernels`` JSON record; the last line is the device record.
 """
@@ -1023,6 +1037,100 @@ def fl_phase(state, device, card: str, reduced: bool = False):
     print_host_seconds("fl run", host, FL_SPANS, card)
     print_board("fl run", stats, card)
     codec_seconds(state["masked"][SILOS[0]], card)
+    last = run.history[-1]
+    records = [r["digest"] for r in server.metadata.query(kind="model")
+               if r["details"].get("run_id") == run_id
+               and r["details"].get("round") == last["round"]]
+    check(len(records) == 1,
+          f"one model record for round {last['round']}: {len(records)}")
+    return {"params": g1, "digest": last["digest"], "record": records[0],
+            "round": last["round"], "run_id": run_id,
+            "contract_id": contract.contract_id}
+
+
+# ---------------------------------------------------------------------------
+# phase 5b': the checkpoint store and the pytree-level secure aggregation
+# ---------------------------------------------------------------------------
+def _bits(t):
+    """A float tensor's bit pattern (for bitwise comparisons)."""
+    import torch
+    width = {torch.bfloat16: torch.int16, torch.float32: torch.int32}
+    return t.view(width[t.dtype]) if t.dtype in width else t
+
+
+def checkpoint_phase(state, fl: dict, device, card: str):
+    """Save ``fl run``'s last committed global with its provenance
+    metadata and load it back onto the card, in f32 and as a bf16 copy
+    (a tree the reference's loader rejects); then ``mask_update`` over
+    phase 4's trained silos and ``aggregate_masked`` (K1)."""
+    import shutil
+    import torch
+    from repro_torch import tree as _tree
+    from repro_torch.checkpoint import load_checkpoint, save_checkpoint
+    from repro_torch.core.packing import pack_pytree
+    from repro_torch.core.secure_agg import aggregate_masked, mask_update
+
+    ckdir = ROOT / "build" / "chip_smoke_ckpt"
+    meta = {k: fl[k] for k in ("round", "run_id", "contract_id")}
+    f32 = fl["params"]
+    trees = (("f32", f32),
+             ("bf16", _tree.tree_map(lambda t: t.to(torch.bfloat16), f32)))
+    try:
+        for what, params in trees:
+            path = str(ckdir / what)
+            flat = _tree.leaves(params)
+            mb = sum(t.numel() * t.element_size() for t in flat) / 1e6
+            manifest, s_save = sync_seconds(save_checkpoint, path, params,
+                                            metadata=meta)
+            (back, loaded), s_load = sync_seconds(load_checkpoint, path,
+                                                  params, device=device)
+            npz = Path(path + ".npz").stat().st_size
+            got = _tree.leaves(back)
+            check(loaded == manifest and manifest["metadata"] == meta,
+                  f"{what}: the loaded manifest is the saved one")
+            check(len(got) == len(flat) and all(
+                a.device == b.device and a.dtype == b.dtype
+                and torch.equal(_bits(a), _bits(b))
+                for a, b in zip(got, flat)),
+                f"{what}: every loaded leaf bitwise equal, on the card")
+            if what == "f32":
+                check(manifest["digest"] == fl["digest"] == fl["record"],
+                      "the manifest's digest is the store's key and the "
+                      "chain's model record for round "
+                      f"{fl['round']}: {manifest['digest'][:12]}")
+            print(f"checkpoint: {what} global of round {fl['round']}, "
+                  f"{len(flat)} leaves, {mb:.1f} MB, .npz {npz} B; save "
+                  f"{s_save:.3f} s ({mb / s_save:.1f} MB/s), load "
+                  f"{s_load:.3f} s ({mb / s_load:.1f} MB/s); digest "
+                  f"{manifest['digest'][:12]}, bitwise round trip [{card}]",
+                  flush=True)
+            del back, got
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    check(not ckdir.exists(), "the checkpoint files are deleted")
+    del trees
+
+    cohort = sorted(SILOS)
+    masked, s_mask = {}, []
+    for cid in SILOS:
+        masked[cid], s = sync_seconds(mask_update, state["trained"][cid],
+                                      cid, cohort, SECRET, device=device)
+        s_mask.append(s)
+        check(torch.equal(_bits(pack_pytree(masked[cid])[0]),
+                          _bits(state["masked"][cid])),
+              f"pytree: {cid}'s masked tree bitwise equal to round_phase's "
+              "masked buffer")
+    mean, s_agg = sync_seconds(aggregate_masked,
+                               [masked[c] for c in SILOS], device=device)
+    plain_mean = torch.stack([state["plain"][c] for c in SILOS]).mean(0)
+    err = float((pack_pytree(mean)[0] - plain_mean).abs().max())
+    check(err <= ROUND_ATOL,
+          f"pytree: aggregate_masked vs plain mean {err:.3g}")
+    print(f"pytree: mask_update over {len(SILOS)} trained silos bitwise "
+          f"equal to round_phase's masked buffers, s a silo "
+          f"{[round(v, 4) for v in s_mask]}; aggregate_masked {s_agg:.4f} s,"
+          f" vs plain mean {err:.3g} (atol {ROUND_ATOL}) [{card}]",
+          flush=True)
 
 
 def span_seconds(tel, run_id: str):
@@ -3011,8 +3119,16 @@ def main() -> int:
     check(not any(read_path("remat", ()).values()),
           "the remat path launches no kernel")
     reset_launches()
-    run_phase("fl run", peaks, card, fl_phase, state, device, card)
+    committed = run_phase("fl run", peaks, card, fl_phase, state, device,
+                          card)
     fl = read_path("fl", ("masked_sum",))
+    reset_launches()
+    run_phase("checkpoint", peaks, card, checkpoint_phase, state, committed,
+              device, card)
+    del committed
+    pytree = read_path("pytree", ("masked_sum",))
+    check(pytree["masked_sum"] == 1 and sum(pytree.values()) == 1,
+          "the pytree path launches K1 once and nothing else")
     reset_launches()
     run_phase("fleet", peaks, card, fleet_phase, state, device, card)
     run_phase("fleet run", peaks, card, fleet_run_phase, state, device, card)
@@ -3089,9 +3205,9 @@ def main() -> int:
           f"one prefill launches K6 and K7 once a layer ({n_layers})")
     check(served["flash_attention_f32"] == 0,
           "the bf16 serve path runs K6's tensor-core kernel only")
-    launches = {k: fp32[k] + fl[k] + fleet[k] + asynchronous[k] + pod[k]
-                + sim[k] + split[k] + mesh[k] + compressed[k] + threefry[k]
-                + served[k] for k in fp32}
+    launches = {k: fp32[k] + fl[k] + pytree[k] + fleet[k] + asynchronous[k]
+                + pod[k] + sim[k] + split[k] + mesh[k] + compressed[k]
+                + threefry[k] + served[k] for k in fp32}
     for k in kernels:
         check(launches[k["name"]] > 0, f"{k['name']} launched on the path")
     print(f"main path: launches {launches}; peak device memory "

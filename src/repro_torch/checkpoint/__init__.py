@@ -1,1 +1,2 @@
-from repro_torch.checkpoint.ckpt import pytree_digest  # noqa: F401
+from repro_torch.checkpoint.ckpt import (load_checkpoint, save_checkpoint,
+                                         pytree_digest)  # noqa: F401

@@ -52,7 +52,9 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from repro_torch.core.packing import as_f32, as_matrix
+from repro_torch import tree as _tree
+from repro_torch.core.packing import (as_f32, as_matrix, pack_many,
+                                      pack_pytree, unpack_pytree)
 from repro_torch.device import DEFAULT_DEVICE, resolve
 from repro_torch.kernels.secure_agg.ops import (masked_sum,
                                                 masked_sum_corrected)
@@ -222,6 +224,39 @@ def repair_correction(size: int, client_id: str, dropped: Sequence[str],
     return mask_packed(torch.zeros(size, dtype=torch.float32, device=dev),
                        client_id, [client_id, *dropped], pair_secret, scale,
                        prg, device=dev)
+
+
+# ---------------------------------------------------------------------------
+# pytree-level entry points (pack -> packed op -> unpack)
+# ---------------------------------------------------------------------------
+def _tensors_on(tree, dev: torch.device):
+    """Every leaf (a tensor or an array) as a tensor on ``dev``."""
+    return _tree.tree_map(lambda x: torch.as_tensor(x, device=dev), tree)
+
+
+def mask_update(update, client_id: str, cohort: Sequence[str],
+                pair_secret: bytes, scale: float = DEFAULT_SCALE, *,
+                device=DEFAULT_DEVICE):
+    """Mask a parameter tree: one pack, one vectorized masking pass, one
+    unpack into the leaves' dtypes on ``device``."""
+    dev = resolve(device)
+    buf, layout = pack_pytree(_tensors_on(update, dev))
+    return unpack_pytree(mask_packed(buf, client_id, cohort, pair_secret,
+                                     scale, device=dev), layout)
+
+
+def aggregate_masked(masked_updates: Sequence, *, device=DEFAULT_DEVICE):
+    """Uniform mean of masked trees — masks cancel exactly.
+
+    Packs the cohort into one (N, T) matrix, reduces it through K1 on a
+    CUDA device (its plain version on the CPU) and unpacks once. The
+    reference's ``interpret=`` selects its Pallas interpreter, which the
+    port does not have."""
+    dev = resolve(device)
+    stacked, layout = pack_many([_tensors_on(t, dev)
+                                 for t in masked_updates])
+    return unpack_pytree(aggregate_masked_packed(stacked, device=dev),
+                         layout)
 
 
 # ---------------------------------------------------------------------------

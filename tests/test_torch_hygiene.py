@@ -58,19 +58,22 @@ def test_sources_name_no_jax_and_no_repro():
         assert not hits, f"{path}: {hits}"
 
 
-def test_entry_points_need_cuda_unless_asked_for_cpu():
+def test_entry_points_need_cuda_unless_asked_for_cpu(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("this host has CUDA: the default device is valid here")
+    from repro_torch.checkpoint import load_checkpoint, save_checkpoint
     from repro_torch.convert import params_from_numpy
     from repro_torch.core.aggregation import aggregate, aggregate_packed
     from repro_torch.core.compression import (ErrorFeedback, compress,
                                               masked_compress,
                                               reduce_compressed,
                                               reduce_masked)
-    from repro_torch.core.secure_agg import (aggregate_masked_packed,
+    from repro_torch.core.secure_agg import (aggregate_masked,
+                                             aggregate_masked_packed,
                                              int_mask_offset,
                                              int_repair_correction,
-                                             mask_packed, repair_correction)
+                                             mask_packed, mask_update,
+                                             repair_correction)
     from repro_torch.core.streaming import (MaskedF32Sink, ModularSink,
                                             QuantSink, TopkSink)
     from repro_torch.kernels.secure_agg.ops import combine_pytrees
@@ -82,6 +85,9 @@ def test_entry_points_need_cuda_unless_asked_for_cpu():
     masked, _ = masked_compress(zeros, grid=0.01, client_id="a",
                                 cohort=["a"], pair_secret=b"s", device="cpu")
     ef = ErrorFeedback("int8")
+    ckpt = str(tmp_path / "ckpt")
+    # a save writes the tree where it lies: it takes no device
+    save_checkpoint(ckpt, {"w": torch.zeros(4)})
     calls = [
         lambda: build_model("fedforecast-100m"),
         lambda: build_model("hymba-1.5b"),
@@ -102,6 +108,9 @@ def test_entry_points_need_cuda_unless_asked_for_cpu():
         lambda: int_mask_offset(4, "a", ["a", "b"], b"s", 16),
         lambda: int_repair_correction(4, "a", ["b"], b"s", 16),
         lambda: aggregate_masked_packed([zeros]),
+        lambda: mask_update(tree, "a", ["a", "b"], b"s"),
+        lambda: aggregate_masked([tree, tree]),
+        lambda: load_checkpoint(ckpt, tree),
         lambda: combine_pytrees([tree, tree], [0.5, 0.5]),
         lambda: aggregate_packed("fedavg", [zeros, zeros]),
         lambda: aggregate("fedavg", [tree, tree]),
@@ -122,6 +131,12 @@ def test_entry_points_need_cuda_unless_asked_for_cpu():
     assert reduce_masked([masked], device="cpu").device.type == "cpu"
     assert reduce_compressed([msg], [1.0], device="cpu").shape == (4,)
     assert aggregate_packed("fedavg", [zeros], device="cpu").shape == (4,)
+    masked = [mask_update(tree, c, ["a", "b"], b"s", device="cpu")
+              for c in ("a", "b")]
+    assert masked[0]["w"].device.type == "cpu"
+    assert aggregate_masked(masked, device="cpu")["w"].shape == (4,)
+    assert load_checkpoint(ckpt, tree, device="cpu")[0]["w"].device.type \
+        == "cpu"
 
 
 def test_kernel_build_is_not_triggered_by_import():
@@ -172,6 +187,12 @@ def test_import_check_covers_the_control_plane():
     mods = _modules()
     for m in CONTROL_PLANE:
         assert f"repro_torch.core.{m}" in mods
+
+
+def test_import_check_covers_the_checkpoint_store():
+    mods = _modules()
+    for m in ("repro_torch.checkpoint", "repro_torch.checkpoint.ckpt"):
+        assert m in mods
 
 
 def test_socket_board_child_runs_the_port_module():
