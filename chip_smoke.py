@@ -59,10 +59,10 @@ Phases (every failed check exits non-zero):
    (same init, batches, steps and lr; only the masks' rounding differs),
    round 1 moves no weight by more than 1e-2, finite losses,
    ``mask_repair`` and ``deploy_model`` from both survivors, predicted
-   tokens in range. Prints the run's wall and per-round seconds, host
-   seconds by telemetry span (``phase:*``, ``client.*``,
-   ``kernel:masked_sum*``), the board's bytes and the host codec seconds
-   of one 465.6 MB message.
+   tokens in range. Prints the run's wall and per-round seconds, seconds
+   by telemetry span (``phase:*``, ``client.*`` on the host,
+   ``kernel:masked_sum*`` on the card), the board's bytes and the host
+   codec seconds of one 465.6 MB message.
 5b'. ``checkpoint``: ``save_checkpoint`` of ``fl run``'s last committed
    global (T = 116,411,136 f32, 465.6 MB, on the card) with metadata
    ``{"round", "run_id", "contract_id"}`` under ``build/``, then
@@ -86,7 +86,8 @@ Phases (every failed check exits non-zero):
    dropped + folded, K1 launched at least ceil(folded / 8) times, and a
    one-device fleet at cohort 1 bitwise equal to ``_fit`` on a twin
    dataset. Prints seconds and devices/s a round, the median
-   ``device.train`` ms, the K1 fold ms (``kernel:masked_sum_stream``),
+   ``device.train`` ms, the K1 fold's device ms
+   (``kernel:masked_sum_stream``),
    the peak fold bytes, the delta norms and how many were clipped.
 5d. ``fleet run``: ``Consortium`` over the 3 silos, each fronting a
    10,000-device fleet (cohort 8, dropout 0.05, clip 15.0), one secure
@@ -1134,14 +1135,19 @@ def checkpoint_phase(state, fl: dict, device, card: str):
 
 
 def span_seconds(tel, run_id: str):
-    """Host seconds of the run's closed spans: by span name, and the
-    round phases' by round (for an async run the round is the commit)."""
+    """Seconds of the run's closed spans by span name, a ``kernel:*``
+    span's on the card (its CUDA events; the host's clock around it holds
+    only the launch), every other span's on the host; and the round
+    phases' host seconds by round (for an async run the round is the
+    commit)."""
     host: dict = {}
     by_round: dict = {}
     for sp in tel.spans(run_id):
         if sp.t1 is None:
             continue
-        host[sp.name] = host.get(sp.name, 0.0) + (sp.t1 - sp.t0)
+        dur = (sp.device_s if sp.name.startswith("kernel:")
+               else sp.t1 - sp.t0)
+        host[sp.name] = host.get(sp.name, 0.0) + dur
         if sp.name.startswith("phase:") and sp.name not in (
                 "phase:waiting_clients", "phase:validating",
                 "phase:deploying"):
@@ -1154,8 +1160,8 @@ def print_host_seconds(what: str, host: dict, spans, card: str):
     keys = sorted(k for k in host if k.startswith("phase:")) + list(
         spans) + sorted(k for k in host if k.startswith("kernel:masked_sum"))
     print(f"{what} host s: " + ", ".join(
-        f"{k} {host.get(k, 0.0):.3f}" for k in keys) + f" [{card}]",
-        flush=True)
+        f"{k} {host.get(k, 0.0):.3f}" for k in keys)
+        + f" (kernel:* on the card) [{card}]", flush=True)
 
 
 def print_board(what: str, stats: dict, card: str):
@@ -1321,7 +1327,7 @@ def fleet_phase(state, device, card: str, reduced: bool = False):
     spans = tel.spans("fleet")      # the untraced rounds' spans
     train_ms = sorted((sp.t1 - sp.t0) * 1e3 for sp in spans
                       if sp.name == "device.train" and sp.t1 is not None)
-    fold_ms = sorted((sp.t1 - sp.t0) * 1e3 for sp in spans
+    fold_ms = sorted(sp.device_s * 1e3 for sp in spans
                      if sp.name == "kernel:masked_sum_stream"
                      and sp.t1 is not None)
 

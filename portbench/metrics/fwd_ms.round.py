@@ -1,0 +1,14 @@
+"""The silo train step's forward pass (remat's first pass and the CE), ms:
+the mean device time of the program's ``train.forward`` spans over the
+profiled round (CUDA events, ``repro_torch.core.telemetry``)."""
+
+
+def read(rec):
+    try:
+        from repro_torch.core import telemetry
+        spans = telemetry.process().spans()
+    except (ImportError, AttributeError):
+        return None
+    times = [s.device_s for s in spans
+             if s.name == "train.forward" and s.t1 is not None]
+    return 1e3 * sum(times) / len(times) if times else None

@@ -31,7 +31,7 @@ import torch
 
 from repro_torch import tree as _tree
 from repro_torch.checkpoint import pytree_digest
-from repro_torch.core import secure_agg
+from repro_torch.core import secure_agg, telemetry
 from repro_torch.convert import params_from_numpy, params_to_numpy
 from repro_torch.core.communicator import ClientCommunicator
 from repro_torch.core.packing import pack_pytree
@@ -184,7 +184,14 @@ class FLClientNode:
 
     # ------------------------------------------------------------------
     def tick(self) -> str:
-        """One poll cycle. Returns a short description of what happened."""
+        """One poll cycle. Returns a short description of what happened.
+        The board's telemetry is in scope (``telemetry.scope``), so the
+        train step, the pack and mask and the sinks record under this
+        node's spans (``client.train``, ``client.compress``)."""
+        with telemetry.scope(self.telemetry):
+            return self._poll()
+
+    def _poll(self) -> str:
         # heartbeat first: the server watches the refresh stamp to tell
         # slow from gone when a round deadline expires. Posted while the
         # job is still unknown (the waiting_clients phase needs liveness
@@ -694,7 +701,7 @@ class FLClientNode:
         cache_len = m.cache_len_for(S + n_steps)
         batch = {"tokens": torch.from_numpy(np.asarray(tokens))}
         out = []
-        with torch.no_grad():
+        with torch.no_grad(), telemetry.scope(self.telemetry):
             logits, cache = m.prefill(params, batch, cache_len)
             tok = torch.argmax(logits, -1).to(torch.int32)
             for i in range(n_steps):

@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from repro_torch import tree as _tree
+from repro_torch.core import telemetry
 
 
 def dtype_name(dtype: torch.dtype) -> str:
@@ -72,15 +73,17 @@ def pack_pytree(tree, layout: PackedLayout = None):
         raise ValueError(
             f"tree has {len(flat)} leaves, layout expects "
             f"{len(layout.leaves)}")
-    parts = []
-    for leaf, spec in zip(flat, layout.leaves):
-        if tuple(leaf.shape) != spec.shape:
-            raise ValueError(
-                f"leaf shape {tuple(leaf.shape)} != layout {spec.shape}")
-        parts.append(leaf.detach().reshape(-1).to(torch.float32))
-    if not parts:
+    if not flat:
         return torch.zeros((0,), dtype=torch.float32), layout
-    return torch.cat(parts), layout
+    with telemetry.current().span("secure.pack", cat="secure",
+                                  device=flat[0].device):
+        parts = []
+        for leaf, spec in zip(flat, layout.leaves):
+            if tuple(leaf.shape) != spec.shape:
+                raise ValueError(
+                    f"leaf shape {tuple(leaf.shape)} != layout {spec.shape}")
+            parts.append(leaf.detach().reshape(-1).to(torch.float32))
+        return torch.cat(parts), layout
 
 
 def unpack_pytree(buf: torch.Tensor, layout: PackedLayout):

@@ -53,6 +53,7 @@ import numpy as np
 import torch
 
 from repro_torch import tree as _tree
+from repro_torch.core import telemetry
 from repro_torch.core.packing import (as_f32, as_matrix, pack_many,
                                       pack_pytree, unpack_pytree)
 from repro_torch.device import DEFAULT_DEVICE, resolve
@@ -188,9 +189,10 @@ def mask_packed(buf, client_id: str, cohort: Sequence[str],
     """Add all pairwise-cancelling masks to a packed (T,) fp32 buffer
     (a tensor or an array); the result lies on ``device``."""
     dev = resolve(device)
-    keys, signs = pair_keys(client_id, cohort, pair_secret)
-    return _apply_masks(as_f32(buf, dev).reshape(-1), keys, signs, scale,
-                        prg=prg)
+    with telemetry.current().span("secure.mask", cat="secure", device=dev):
+        keys, signs = pair_keys(client_id, cohort, pair_secret)
+        return _apply_masks(as_f32(buf, dev).reshape(-1), keys, signs,
+                            scale, prg=prg)
 
 
 def aggregate_masked_packed(buffers, weights: Optional[Sequence[float]]

@@ -49,6 +49,7 @@ from repro_torch import tree as _tree
 from repro_torch.checkpoint import pytree_digest
 from repro_torch.convert import params_to_numpy
 from repro_torch.core.aggregation import aggregate
+from repro_torch.core import telemetry
 from repro_torch.core.packing import PackedLayout, unpack_pytree
 from repro_torch.core.clients import ClientManagement
 from repro_torch.core.communicator import MessageBoard, ServerCommunicator
@@ -321,7 +322,13 @@ class FLServer:
     def tick(self) -> str:
         """Advance the run one poll cycle: poll the active phase, apply
         its transition (helper-set transitions — e.g. a deadline pause —
-        take precedence over the poll return value), publish status."""
+        take precedence over the poll return value), publish status. The
+        board's telemetry is in scope (``telemetry.scope``), so the outer
+        step records under the run's spans."""
+        with telemetry.scope(self.telemetry):
+            return self._poll()
+
+    def _poll(self) -> str:
         r = self.run
         if r is None:
             return "idle"
@@ -567,7 +574,8 @@ class FLServer:
                 job.local_steps * job.batch_size)
             with self.telemetry.kernel_span(
                     "masked_dequant_reduce", run_id=r.run_id,
-                    scheme="secure+compressed", cohort=str(len(cids))):
+                    device=self.device, scheme="secure+compressed",
+                    cohort=str(len(cids))):
                 if streamed:
                     if (corrections is not None and corrections
                             is not streaming.CORRECTIONS_FOLDED):
@@ -598,8 +606,8 @@ class FLServer:
             denom = float(sum(sizes[c] for c in cids)) / float(
                 job.local_steps * job.batch_size)
             with self.telemetry.kernel_span(
-                    "masked_sum", run_id=r.run_id, scheme="secure",
-                    cohort=str(len(cids))):
+                    "masked_sum", run_id=r.run_id, device=self.device,
+                    scheme="secure", cohort=str(len(cids))):
                 if streamed:
                     if (corrections is not None and corrections
                             is not streaming.CORRECTIONS_FOLDED):
@@ -625,8 +633,8 @@ class FLServer:
             # commutes with the sum.
             layout = PackedLayout.for_tree(old_params)
             with self.telemetry.kernel_span(
-                    "dequant_reduce", run_id=r.run_id, scheme="compressed",
-                    cohort=str(len(cids))):
+                    "dequant_reduce", run_id=r.run_id, device=self.device,
+                    scheme="compressed", cohort=str(len(cids))):
                 if streamed:
                     sink = updates.sink
                     tw = sink.total_weight or 1.0

@@ -27,10 +27,15 @@ fold-on-arrival cohort the collect phase hands the aggregator),
 ``LazyCohort`` and ``LazyView`` (decrypt-on-access board views) and the
 ``CORRECTIONS_FOLDED`` sentinel of the streamed repair.
 
-Telemetry: with a ``telemetry`` bundle each flush and each decode runs
-under a ``kernel_span`` (``<kernel>_stream``) and waits for the card, as
-the reference blocks on its result, so the span holds the kernel's time;
-each flush bumps ``agg.stream_fold_batches`` and folds its working-set
+Telemetry: a sink records into its ``telemetry`` bundle, or without one
+into the bundle in scope (``telemetry.current()``). Each fold runs under
+a ``sink.fold`` span whose ``bytes`` are the host bytes it moved onto
+the card (also the always-live ``sink.h2d_bytes`` counter, by plane),
+each ``finalize`` under ``sink.finalize``, and each flush and each
+decode under a ``kernel_span`` (``kernel:<kernel>_stream``): device
+spans, timed on the card by CUDA events, so nothing waits for the card
+inside them; ``kernel.seconds`` gets each reduction's device time. Each
+flush bumps ``agg.stream_fold_batches`` and folds its working-set
 high-water mark into the ``agg.accumulator_peak_bytes`` gauge.
 
 Mesh: the fp32, int8 and masked-integer sinks take the reference's
@@ -49,12 +54,12 @@ result is bitwise the unsplit sink's.
 """
 from __future__ import annotations
 
-import contextlib
 from typing import Callable, Dict, Iterable, Optional, Sequence
 
 import numpy as np
 import torch
 
+from repro_torch.core import telemetry as _telemetry
 from repro_torch.core.packing import as_f32
 from repro_torch.core.secure_agg import u32_bits, u32_from_i64, u32_to_i64
 from repro_torch.device import DEFAULT_DEVICE, resolve
@@ -69,6 +74,24 @@ DEFAULT_STREAM_BATCH = 8
 
 GAUGE_PEAK_BYTES = "agg.accumulator_peak_bytes"
 COUNTER_FOLD_BATCHES = "agg.stream_fold_batches"
+COUNTER_H2D_BYTES = "sink.h2d_bytes"
+
+
+def _host_nbytes(x) -> int:
+    """Bytes of ``x`` if it lies in host memory (an array or a CPU
+    tensor), else 0."""
+    if isinstance(x, torch.Tensor):
+        return x.numel() * x.element_size() if x.device.type == "cpu" else 0
+    return int(np.asarray(x).nbytes)
+
+
+def _note_moved(bundle, span, device, plane: str, nbytes: int) -> None:
+    """A fold moved ``nbytes`` of host memory onto ``device`` (none off
+    CUDA): the span's ``bytes`` and the ``sink.h2d_bytes`` counter."""
+    if device.type != "cuda":
+        nbytes = 0
+    span.set(bytes=nbytes)
+    bundle.metrics.counter(COUNTER_H2D_BYTES, plane=plane).inc(nbytes)
 
 
 class _CorrectionsFolded:
@@ -126,19 +149,18 @@ class _SinkBase:
         self._finalized = False
 
     # -- telemetry ------------------------------------------------------
-    @contextlib.contextmanager
+    def _bundle(self):
+        """The sink's telemetry bundle, else the one in scope."""
+        if self.telemetry is not None:
+            return self.telemetry
+        return _telemetry.current()
+
     def _span(self, kernel: str):
-        """The reduction under ``kernel_span(<kernel>_stream)``; waits for
-        the card before the span closes."""
-        if self.telemetry is None:
-            yield
-            return
-        with self.telemetry.kernel_span(
-                f"{kernel}_stream", run_id=self.run_id, plane=self.plane,
-                cohort=str(self.n_folded)):
-            yield
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
+        """The reduction under ``kernel_span(<kernel>_stream)``, timed on
+        the sink's device without waiting for it."""
+        return self._bundle().kernel_span(
+            f"{kernel}_stream", run_id=self.run_id, device=self.device,
+            plane=self.plane, cohort=str(self.n_folded))
 
     def _note_flush(self, staged_bytes: int):
         self.fold_batches += 1
@@ -202,12 +224,18 @@ class MaskedF32Sink(_SinkBase):
     def fold(self, buf, weight: float = 1.0):
         """Stage one (T,) buffer (array or tensor, moved to the sink's
         device) with its weight."""
-        buf = as_f32(buf, self.device).reshape(-1)
-        if buf.shape[0] != self.t:
-            raise ValueError(
-                f"buffer size {buf.shape[0]} != sink size {self.t}")
-        self._stage((buf, float(weight)))
-        self.n_folded += 1 if weight > 0 else -1
+        bundle = self._bundle()
+        with bundle.span("sink.fold", cat="sink",
+                         device=self.device) as sp:
+            host = _host_nbytes(buf) > 0
+            buf = as_f32(buf, self.device).reshape(-1)
+            if buf.shape[0] != self.t:
+                raise ValueError(
+                    f"buffer size {buf.shape[0]} != sink size {self.t}")
+            self._stage((buf, float(weight)))
+            self.n_folded += 1 if weight > 0 else -1
+            _note_moved(bundle, sp, self.device, self.plane,
+                        4 * buf.numel() if host else 0)
 
     def unfold(self, buf, weight: float = 1.0):
         """Back a folded client out (mid-repair dropout)."""
@@ -248,14 +276,16 @@ class MaskedF32Sink(_SinkBase):
     def finalize(self) -> torch.Tensor:
         """Flush what is staged; the (T,) fp32 sum on the sink's device
         (with a mesh, on its first device)."""
-        self._flush()
-        self._finalized = True
-        if self._acc is None:
-            return torch.zeros(self.t, dtype=torch.float32,
-                               device=self.device)
-        if self.mesh is not None:
-            return _shard.gather(self._acc, self.t)
-        return self._acc
+        with self._bundle().span("sink.finalize", cat="sink",
+                                  device=self.device):
+            self._flush()
+            self._finalized = True
+            if self._acc is None:
+                return torch.zeros(self.t, dtype=torch.float32,
+                                   device=self.device)
+            if self.mesh is not None:
+                return _shard.gather(self._acc, self.t)
+            return self._acc
 
 
 class ModularSink(_SinkBase):
@@ -291,20 +321,29 @@ class ModularSink(_SinkBase):
         return z
 
     def fold(self, z):
-        self._stage((self._pad(z), False))
-        self.n_folded += 1
+        self._fold_row(z, False, 1)
 
     def unfold(self, z):
-        self._stage((self._pad(z), True))
-        self.n_folded -= 1
+        self._fold_row(z, True, -1)
 
     def fold_correction(self, z):
         """Modular subtraction of a survivor's integer repair stream."""
-        self._stage((self._pad(z), True))
+        self._fold_row(z, True, 0)
 
     def unfold_correction(self, z):
         """Modular re-add of a correction that became stale."""
-        self._stage((self._pad(z), False))
+        self._fold_row(z, False, 0)
+
+    def _fold_row(self, z, subtract: bool, members: int):
+        """Stage ``z`` to be added (or subtracted) mod 2**32; ``members``
+        is its change to the cohort count."""
+        bundle = self._bundle()
+        with bundle.span("sink.fold", cat="sink",
+                         device=self.device) as sp:
+            moved = _host_nbytes(z)
+            self._stage((self._pad(z), subtract))
+            self.n_folded += members
+            _note_moved(bundle, sp, self.device, self.plane, moved)
 
     def _row_bytes(self, item) -> int:
         return item[0].numel() * 4
@@ -321,19 +360,21 @@ class ModularSink(_SinkBase):
 
     def finalize(self) -> torch.Tensor:
         """Flush; the (t,) f32 decoded cohort sum on the sink's device."""
-        self._flush()
-        self._finalized = True
-        scales = torch.full((self.tp // CHUNK,), self.grid,
-                            dtype=torch.float32, device=self.device)
-        z = u32_from_i64(self._acc).reshape(1, self.tp)
-        with self._span("masked_dequant_reduce"):
-            if self.mesh is not None:
-                out = _shard.sharded_masked_dequant_reduce(
-                    z, scales, modulus_bits=self.mbits, mesh=self.mesh)
-            else:
-                out = masked_dequant_reduce(z, scales,
-                                            modulus_bits=self.mbits)
-        return out[:self.t]
+        with self._bundle().span("sink.finalize", cat="sink",
+                                  device=self.device):
+            self._flush()
+            self._finalized = True
+            scales = torch.full((self.tp // CHUNK,), self.grid,
+                                dtype=torch.float32, device=self.device)
+            z = u32_from_i64(self._acc).reshape(1, self.tp)
+            with self._span("masked_dequant_reduce"):
+                if self.mesh is not None:
+                    out = _shard.sharded_masked_dequant_reduce(
+                        z, scales, modulus_bits=self.mbits, mesh=self.mesh)
+                else:
+                    out = masked_dequant_reduce(z, scales,
+                                                modulus_bits=self.mbits)
+            return out[:self.t]
 
 
 class QuantSink(_SinkBase):
@@ -359,27 +400,33 @@ class QuantSink(_SinkBase):
     def fold(self, cid: str, q, scales, weight: float):
         """Stage one client's decoded int8 wire stream with its per-chunk
         scales and weight; both go to the sink's device."""
-        q = np.asarray(q, np.int8).reshape(-1)
-        if q.shape[0] != self.t:
-            raise ValueError(
-                f"quantized stream size {q.shape[0]} != sink size {self.t}")
-        if self.tp != self.t:
-            q = np.pad(q, (0, self.tp - self.t))
-        scales = np.asarray(scales, np.float32).reshape(-1)
-        # ||deq||^2 from per-chunk energies of the int8 row, on the host
-        # in f64 as the reference computes it (f32 squares are exact:
-        # |q| <= 127 keeps a chunk's squared sum < 2**24)
-        qsq = (q.astype(np.float32) ** 2).reshape(-1, CHUNK).sum(
-            -1, dtype=np.float64)
-        self.norms[cid] = float(
-            np.sqrt((qsq * scales.astype(np.float64) ** 2).sum()))
-        self._stage((torch.from_numpy(np.require(q, requirements="W"))
-                     .to(self.device),
-                     torch.from_numpy(np.require(scales, requirements="W"))
-                     .to(self.device),
-                     float(weight)))
-        self.total_weight += float(weight)
-        self.n_folded += 1 if weight > 0 else -1
+        bundle = self._bundle()
+        with bundle.span("sink.fold", cat="sink",
+                         device=self.device) as sp:
+            q = np.asarray(q, np.int8).reshape(-1)
+            if q.shape[0] != self.t:
+                raise ValueError(f"quantized stream size {q.shape[0]} != "
+                                 f"sink size {self.t}")
+            if self.tp != self.t:
+                q = np.pad(q, (0, self.tp - self.t))
+            scales = np.asarray(scales, np.float32).reshape(-1)
+            # ||deq||^2 from per-chunk energies of the int8 row, on the
+            # host in f64 as the reference computes it (f32 squares are
+            # exact: |q| <= 127 keeps a chunk's squared sum < 2**24)
+            qsq = (q.astype(np.float32) ** 2).reshape(-1, CHUNK).sum(
+                -1, dtype=np.float64)
+            self.norms[cid] = float(
+                np.sqrt((qsq * scales.astype(np.float64) ** 2).sum()))
+            self._stage((torch.from_numpy(np.require(q, requirements="W"))
+                         .to(self.device),
+                         torch.from_numpy(np.require(scales,
+                                                     requirements="W"))
+                         .to(self.device),
+                         float(weight)))
+            self.total_weight += float(weight)
+            self.n_folded += 1 if weight > 0 else -1
+            _note_moved(bundle, sp, self.device, self.plane,
+                        q.nbytes + scales.nbytes)
 
     def unfold(self, cid: str, q, scales, weight: float):
         self.fold(cid, q, scales, -weight)
@@ -405,14 +452,16 @@ class QuantSink(_SinkBase):
                 self._acc.add_(s)
 
     def finalize(self) -> torch.Tensor:
-        self._flush()
-        self._finalized = True
-        if self._acc is None:
-            return torch.zeros(self.t, dtype=torch.float32,
-                               device=self.device)
-        if self.mesh is not None:
-            return _shard.gather(self._acc, self.t)
-        return self._acc[:self.t]
+        with self._bundle().span("sink.finalize", cat="sink",
+                                  device=self.device):
+            self._flush()
+            self._finalized = True
+            if self._acc is None:
+                return torch.zeros(self.t, dtype=torch.float32,
+                                   device=self.device)
+            if self.mesh is not None:
+                return _shard.gather(self._acc, self.t)
+            return self._acc[:self.t]
 
 
 class TopkSink:
@@ -437,16 +486,21 @@ class TopkSink:
         return 4 * self.t
 
     def fold(self, cid: str, idx, val, weight: float):
-        val = torch.from_numpy(np.require(val, np.float32, "W")).to(
-            self.device)
-        idx = torch.from_numpy(np.require(idx, requirements="W")).to(
-            self.device, torch.int64)
-        self._acc[idx] += torch.tensor(weight, dtype=torch.float32) * val
-        self.norms[cid] = float(torch.linalg.vector_norm(
-            val.to(torch.float64)))
-        self.total_weight += float(weight)
-        self.n_folded += 1
-        self.fold_batches += 1
+        bundle = _telemetry.current()
+        with bundle.span("sink.fold", cat="sink",
+                         device=self.device) as sp:
+            val = np.require(val, np.float32, "W")
+            idx = np.require(idx, requirements="W")
+            moved = val.nbytes + idx.nbytes
+            val = torch.from_numpy(val).to(self.device)
+            idx = torch.from_numpy(idx).to(self.device, torch.int64)
+            self._acc[idx] += torch.tensor(weight, dtype=torch.float32) * val
+            self.norms[cid] = float(torch.linalg.vector_norm(
+                val.to(torch.float64)))
+            self.total_weight += float(weight)
+            self.n_folded += 1
+            self.fold_batches += 1
+            _note_moved(bundle, sp, self.device, self.plane, moved)
 
     def unfold(self, cid: str, idx, val, weight: float):
         self.fold(cid, idx, val, -weight)
@@ -454,7 +508,9 @@ class TopkSink:
         self.n_folded -= 2           # the fold() above counted +1; net -1
 
     def finalize(self) -> torch.Tensor:
-        return self._acc
+        with _telemetry.current().span("sink.finalize", cat="sink",
+                                       device=self.device):
+            return self._acc
 
 
 def _masked_contract(m: dict, expect: Optional[tuple]) -> tuple:

@@ -24,8 +24,8 @@ and on which silo's link?"*. This module is that instrument panel
   counters (``MessageBoard.stats``, ``FederationScheduler.stats``), so
   a snapshot really is a snapshot — nothing the caller holds mutates
   under it. ``snapshot()``/``diff()`` support windowed readings;
-  ``kernel_span`` feeds per-kernel timing histograms around the Pallas
-  secure_agg / compressed_agg reductions.
+  ``kernel_span`` feeds the ``kernel.seconds`` histogram around the
+  CUDA secure_agg / compressed_agg reductions.
 * **Flight recorder** — a bounded ring of recent spans per run, dumped
   into ``incidents`` on failure/pause, and exportable as Chrome-trace /
   Perfetto JSON (``export_trace``). ``anchor_trace`` records the
@@ -33,20 +33,40 @@ and on which silo's link?"*. This module is that instrument panel
   provenance chain, so an exported timeline is tamper-evident like
   every other governance artifact.
 
+Device time. A span opened with ``device=`` a CUDA device records a
+pair of timing events (``torch.cuda.Event``, from a pool) on that
+device's current stream at enter and at exit, and never waits for the
+card inside the span: ``Span.device_s`` resolves the pair when it is
+read, waiting for the end event then. Off CUDA it is the host duration.
+The host stamps stay on ``time.perf_counter``.
+
+The hot path. The data plane and the models (the train step, pack and
+mask, the sinks, the outer step, prefill and decode) record into
+``current()``: the bundle a caller put in scope with ``scope(tel)`` (an
+``FLClientNode`` scopes its board's), else the process-wide
+``process()`` bundle, disabled by default. A bundle records spans while
+``recording``: when it is enabled, or while a ``torch.profiler``
+session is on, so a profile of the program carries its layers.
+
 ``Telemetry(enabled=False)`` is the default everywhere and is measurably
 near-free: ``span()`` short-circuits to a shared no-op context manager
-(no allocation), the registry counters are plain attribute adds the
-components already paid as dict updates, and nothing is recorded.
-``benchmarks/check_regression.py`` gates the disabled-path overhead at
-<5% of the multi-job smoke bench.
+(no allocation) after two attribute reads, the registry counters are
+plain attribute adds the components already paid as dict updates, and
+nothing is recorded. ``benchmarks/check_regression.py`` gates the
+disabled-path overhead at <5% of the multi-job smoke bench.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import hashlib
 import json
 import time
 from collections import deque
 from typing import Callable, Dict, List, Optional, Tuple
+
+import torch
+import torch.autograd.profiler as _profiler
 
 __all__ = ["Counter", "Gauge", "Histogram", "MetricsRegistry",
            "Span", "Telemetry"]
@@ -223,6 +243,34 @@ class MetricsRegistry:
 
 
 # ---------------------------------------------------------------------------
+# Device timing events
+# ---------------------------------------------------------------------------
+_EVENTS: Dict[int, list] = {}         # CUDA index -> free timing events
+
+
+def _cuda_index(device) -> Optional[int]:
+    """The CUDA index of ``device`` (a ``torch.device`` or its name), or
+    ``None`` for any other device."""
+    if device is None:
+        return None
+    if isinstance(device, str):
+        device = torch.device(device)
+    if device.type != "cuda":
+        return None
+    return torch.cuda.current_device() if device.index is None \
+        else device.index
+
+
+def _record(index: int, stream):
+    """A timing event of device ``index`` from the pool, recorded on
+    ``stream``; nothing waits for it."""
+    free = _EVENTS.get(index)
+    ev = free.pop() if free else torch.cuda.Event(enable_timing=True)
+    ev.record(stream)
+    return ev
+
+
+# ---------------------------------------------------------------------------
 # Spans
 # ---------------------------------------------------------------------------
 class Span:
@@ -232,10 +280,13 @@ class Span:
     are the acting actor's WanModel simulated clock when one is attached
     (``None`` otherwise). ``t1 is None`` marks a still-open span (a
     phase the run is currently in) — export treats it as running up to
-    the export instant."""
+    the export instant. ``device`` is the type of the device the span
+    was opened with (``None``: a host span); ``device_s`` its time on
+    that device."""
 
     __slots__ = ("span_id", "parent_id", "name", "cat", "actor", "run_id",
-                 "t0", "t1", "sim0", "sim1", "attrs", "_telemetry")
+                 "t0", "t1", "sim0", "sim1", "attrs", "device", "_ev",
+                 "_device_s", "_telemetry")
 
     def __init__(self, span_id, parent_id, name, cat, actor, run_id,
                  t0, sim0, attrs):
@@ -250,6 +301,9 @@ class Span:
         self.sim0 = sim0
         self.sim1 = None
         self.attrs = attrs
+        self.device = None
+        self._ev = None
+        self._device_s = None
 
     def set(self, **attrs):
         """Attach attributes mid-span (a train span learns its loss)."""
@@ -257,6 +311,41 @@ class Span:
             self.attrs = {}
         self.attrs.update(attrs)
         return self
+
+    def _start(self, device) -> None:
+        """Time the span on ``device``: on CUDA, record its start event on
+        the device's current stream, where its end event goes too."""
+        if isinstance(device, str):
+            device = torch.device(device)
+        self.device = device.type
+        index = _cuda_index(device)
+        if index is not None:
+            stream = torch.cuda.current_stream(index)
+            self._ev = [_record(index, stream), None, index, stream]
+
+    def _finish(self, t1: float) -> None:
+        self.t1 = t1
+        ev = self._ev
+        if ev is not None:
+            ev[1] = _record(ev[2], ev[3])
+
+    @property
+    def device_s(self) -> Optional[float]:
+        """Seconds between the span's two events on its CUDA device,
+        resolved at the first read (which waits for the end event) and
+        kept; the host duration for a span off CUDA; ``None`` while the
+        span is open."""
+        if self.t1 is None:
+            return None
+        if self._device_s is None:
+            if self._ev is None:
+                return self.t1 - self.t0
+            start, end, index, _ = self._ev
+            end.synchronize()
+            self._device_s = start.elapsed_time(end) / 1e3
+            self._ev = None
+            _EVENTS.setdefault(index, []).extend((start, end))
+        return self._device_s
 
     def to_dict(self) -> dict:
         return {"span_id": self.span_id, "parent_id": self.parent_id,
@@ -271,6 +360,23 @@ class Span:
 
     def __exit__(self, exc_type, exc, tb):
         self._telemetry._close(self, error=exc is not None)
+        return False
+
+
+class _KernelSpan(Span):
+    """A span around one reduction (``Telemetry.kernel_span``): its
+    device time feeds ``kernel.seconds`` whether or not it is recorded
+    as a trace span (``span_id`` 0: not recorded)."""
+
+    __slots__ = ("kernel",)
+
+    def __exit__(self, exc_type, exc, tb):
+        tel = self._telemetry
+        if self.span_id:
+            tel._close(self, error=exc is not None)
+        else:
+            self._finish(tel.clock())
+        tel._kernel_done(self)
         return False
 
 
@@ -302,7 +408,8 @@ class Telemetry:
     One instance per federation, anchored on the MessageBoard (every
     component — scheduler, servers, client agents, communicators —
     already holds the board, so they all reach the same instance).
-    ``enabled`` gates the *tracer*; the metrics registry is always live
+    ``recording`` gates the *tracer* (``enabled``, or a
+    ``torch.profiler`` session on); the metrics registry is always live
     because the components' ``stats`` views are assembled from it.
     """
 
@@ -320,6 +427,14 @@ class Telemetry:
         self._stack: List[Span] = []
         self._next_id = 1
         self.incidents: List[dict] = []
+        self._kernels: List[_KernelSpan] = []   # not yet in kernel.seconds
+        self.metrics.register_collector(self._collect_kernels)
+
+    @property
+    def recording(self) -> bool:
+        """Spans record: the bundle is enabled, or a ``torch.profiler``
+        session is on (its plain Python flag, no call into C++)."""
+        return self.enabled or _profiler._is_profiler_enabled
 
     # --- wiring ---------------------------------------------------------
     def attach_wan(self, wan) -> None:
@@ -350,36 +465,48 @@ class Telemetry:
         return self.wan.clocks.get(actor, 0.0)
 
     # --- span lifecycle -------------------------------------------------
-    def span(self, name: str, *, cat: str = "span", actor: str = "server",
-             run_id: Optional[str] = None, attrs: Optional[dict] = None):
-        """Open a span as a context manager. Disabled: returns the shared
-        no-op immediately — build expensive ``attrs`` only behind an
-        ``if telemetry.enabled`` guard."""
-        if not self.enabled:
+    def span(self, name: str, *, cat: str = "span",
+             actor: Optional[str] = None, run_id: Optional[str] = None,
+             attrs: Optional[dict] = None, device=None):
+        """Open a span as a context manager. Not recording: returns the
+        shared no-op immediately — build expensive ``attrs`` only behind
+        an ``if telemetry.recording`` guard. ``actor`` and ``run_id``
+        default to the enclosing span's (``actor`` to ``"server"`` at the
+        top). With ``device`` the span also keeps its time on that
+        device (``Span.device_s``)."""
+        if not (self.enabled or _profiler._is_profiler_enabled):
             return _NULL_SPAN
-        sp = self._open_span(name, cat, actor, run_id, attrs)
+        sp = self._open_span(name, cat, actor, run_id, attrs, device)
         sp._telemetry = self
         self._stack.append(sp)
         return sp
 
     def open_span(self, name: str, *, cat: str = "span",
-                  actor: str = "server", run_id: Optional[str] = None,
+                  actor: Optional[str] = None, run_id: Optional[str] = None,
                   attrs: Optional[dict] = None) -> int:
         """Open a long-lived span that crosses call boundaries (a
         protocol phase spanning many ticks). Returns a span id for
-        ``close_span``; 0 when disabled."""
-        if not self.enabled:
+        ``close_span``; 0 when not recording."""
+        if not (self.enabled or _profiler._is_profiler_enabled):
             return 0
         sp = self._open_span(name, cat, actor, run_id, attrs)
         return sp.span_id
 
-    def _open_span(self, name, cat, actor, run_id, attrs) -> Span:
-        parent = self._stack[-1].span_id if self._stack else None
+    def _open_span(self, name, cat, actor, run_id, attrs, device=None,
+                   cls=Span) -> Span:
+        parent = self._stack[-1] if self._stack else None
+        if actor is None:
+            actor = parent.actor if parent is not None else "server"
+        if run_id is None and parent is not None:
+            run_id = parent.run_id
         sid = self._next_id
         self._next_id += 1
-        sp = Span(sid, parent, name, cat, actor, run_id,
-                  self.clock(), self._sim_now(actor), attrs)
+        sp = cls(sid, parent.span_id if parent is not None else None, name,
+                 cat, actor, run_id, self.clock(), self._sim_now(actor),
+                 attrs)
         self._open[sid] = sp
+        if device is not None:
+            sp._start(device)
         return sp
 
     def close_span(self, span_id: int, **attrs) -> None:
@@ -394,7 +521,7 @@ class Telemetry:
         self._open.pop(sp.span_id, None)
         if self._stack and self._stack[-1] is sp:
             self._stack.pop()
-        sp.t1 = self.clock()
+        sp._finish(self.clock())
         sp.sim1 = self._sim_now(sp.actor)
         if error:
             sp.set(error=True)
@@ -409,13 +536,39 @@ class Telemetry:
 
     # --- kernel timing --------------------------------------------------
     def kernel_span(self, kernel: str, *, run_id: Optional[str] = None,
-                    **labels):
-        """Timing hook around a Pallas reduction call. Always feeds the
-        ``kernel.seconds`` histogram (two perf_counter reads — noise next
-        to any kernel); records a trace span only when enabled. Timings
-        include device dispatch/sync as seen by the host — the honest
-        number for the server's tick budget."""
-        return _KernelTimer(self, kernel, run_id, labels)
+                    device=None, **labels):
+        """A device span (``kernel:<kernel>``) around a CUDA reduction.
+        Always feeds the ``kernel.seconds`` histogram: its time on
+        ``device`` (two timing events on CUDA, the host duration off it),
+        resolved by a registry collector at ``snapshot()``, so nothing
+        waits for the card here. Recorded as a trace span only while
+        recording."""
+        if self.enabled or _profiler._is_profiler_enabled:
+            sp = self._open_span(f"kernel:{kernel}", "kernel", None, run_id,
+                                 dict(labels) or None, device, _KernelSpan)
+            self._stack.append(sp)
+        else:
+            sp = _KernelSpan(0, None, f"kernel:{kernel}", "kernel",
+                             "server", run_id, self.clock(), None, None)
+            if device is not None:
+                sp._start(device)
+        sp._telemetry = self
+        sp.kernel = kernel
+        return sp
+
+    def _kernel_done(self, sp: _KernelSpan) -> None:
+        self._kernels.append(sp)
+        if len(self._kernels) > KERNEL_BACKLOG:
+            # nobody snapshots: fold the older half, long since finished
+            self._collect_kernels(self.metrics, KERNEL_BACKLOG // 2)
+
+    def _collect_kernels(self, reg: MetricsRegistry,
+                         n: Optional[int] = None) -> None:
+        done = self._kernels[:n]
+        del self._kernels[:len(done)]
+        for sp in done:
+            reg.histogram("kernel.seconds",
+                          kernel=sp.kernel).observe(sp.device_s)
 
     # --- flight recorder ------------------------------------------------
     def spans(self, run_id: Optional[str] = None,
@@ -480,6 +633,8 @@ class Telemetry:
                 args["run_id"] = s.run_id
             if s.t1 is None:
                 args["open"] = True
+            elif s.device is not None:
+                args["device_ms"] = s.device_s * 1e3
             events.append({
                 "name": s.name, "cat": s.cat, "ph": "X", "pid": 1,
                 "tid": tid_of[s.actor],
@@ -526,32 +681,33 @@ class Telemetry:
         return hashlib.sha256(payload.encode()).hexdigest()
 
 
-class _KernelTimer:
-    """Context manager behind :meth:`Telemetry.kernel_span`."""
+# ---------------------------------------------------------------------------
+# The bundle in scope
+# ---------------------------------------------------------------------------
+PROCESS_RING = 8192           # spans the process-wide bundle's ring keeps
+KERNEL_BACKLOG = 256          # kernel spans kept for the next snapshot
 
-    __slots__ = ("tel", "kernel", "run_id", "labels", "t0", "span")
+_PROCESS = Telemetry(recorder_cap=PROCESS_RING)
+_SCOPE: contextvars.ContextVar = contextvars.ContextVar("telemetry")
 
-    def __init__(self, tel, kernel, run_id, labels):
-        self.tel = tel
-        self.kernel = kernel
-        self.run_id = run_id
-        self.labels = labels
-        self.span = None
 
-    def __enter__(self):
-        if self.tel.enabled:
-            self.span = self.tel.span(f"kernel:{self.kernel}",
-                                      cat="kernel", run_id=self.run_id,
-                                      attrs=dict(self.labels) or None)
-            self.span.__enter__()
-        self.t0 = time.perf_counter()
-        return self
+def process() -> Telemetry:
+    """The process-wide bundle: what ``current()`` returns with none in
+    scope. Disabled by default; it records while a profiler is on."""
+    return _PROCESS
 
-    def __exit__(self, exc_type, exc, tb):
-        dt = time.perf_counter() - self.t0
-        self.tel.metrics.histogram("kernel.seconds",
-                                   kernel=self.kernel).observe(dt)
-        if self.span is not None:
-            self.span.set(seconds=dt)
-            self.span.__exit__(exc_type, exc, tb)
-        return False
+
+def current() -> Telemetry:
+    """The bundle in scope (``scope``), else ``process()``."""
+    return _SCOPE.get(_PROCESS)
+
+
+@contextlib.contextmanager
+def scope(tel: Telemetry):
+    """Put ``tel`` in scope: the data plane and the models record into
+    it inside the block."""
+    token = _SCOPE.set(tel)
+    try:
+        yield tel
+    finally:
+        _SCOPE.reset(token)

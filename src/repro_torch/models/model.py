@@ -269,17 +269,23 @@ class Model:
         return seq_len
 
     def prefill(self, params: dict, batch: dict, cache_len: int):
-        """Returns (logits (B,1,V) of the last position, stacked cache)."""
-        cfg = self.cfg
-        params = self.cast(params)
-        if cfg.is_encoder_decoder:
-            return self._encdec_prefill(params, batch, cache_len)
-        x, positions, _, _ = self._assemble_stream(params, batch)
-        hidden, caches = transformer.stack_prefill(
-            cfg, params["stack"], x, positions,
-            transformer.layer_windows(cfg), cache_len, impl=self.impl)
-        hidden = rms_norm(hidden[:, -1:], params["final_norm"], cfg.norm_eps)
-        return self._logits(params, hidden), caches
+        """Returns (logits (B,1,V) of the last position, stacked cache).
+        Span ``serve.prefill``."""
+        # repro_torch.core imports this module: import its telemetry late
+        from repro_torch.core.telemetry import current
+        with current().span("serve.prefill", cat="serve",
+                            device=self.device):
+            cfg = self.cfg
+            params = self.cast(params)
+            if cfg.is_encoder_decoder:
+                return self._encdec_prefill(params, batch, cache_len)
+            x, positions, _, _ = self._assemble_stream(params, batch)
+            hidden, caches = transformer.stack_prefill(
+                cfg, params["stack"], x, positions,
+                transformer.layer_windows(cfg), cache_len, impl=self.impl)
+            hidden = rms_norm(hidden[:, -1:], params["final_norm"],
+                              cfg.norm_eps)
+            return self._logits(params, hidden), caches
 
     def _encdec_prefill(self, params, batch, cache_len):
         """Encode the frames, fill every layer's cross K/V, and decode a
@@ -313,13 +319,18 @@ class Model:
             return self._on_cpu().init_cache(batch, cache_len)
 
     def _logits(self, params, hidden_last):
-        logits = hidden_last @ self._unembed_matrix(params).to(
-            hidden_last.dtype)
-        logits = logits[..., :self.cfg.vocab]     # drop padded vocab ids
-        if self.cfg.final_logit_softcap > 0:
-            logits = softcap(logits.to(torch.float32),
-                             self.cfg.final_logit_softcap)
-        return logits
+        """Span ``serve.logits``."""
+        # repro_torch.core imports this module: import its telemetry late
+        from repro_torch.core.telemetry import current
+        with current().span("serve.logits", cat="serve",
+                            device=hidden_last.device):
+            logits = hidden_last @ self._unembed_matrix(params).to(
+                hidden_last.dtype)
+            logits = logits[..., :self.cfg.vocab]  # drop padded vocab ids
+            if self.cfg.final_logit_softcap > 0:
+                logits = softcap(logits.to(torch.float32),
+                                 self.cfg.final_logit_softcap)
+            return logits
 
     def _decode_cast(self, params, cache, token, pos):
         cfg = self.cfg
@@ -341,9 +352,14 @@ class Model:
     def decode_step(self, params: dict, cache: dict, token, pos):
         """token: (B,1) int; pos: (B,1) absolute stream position (meta
         tokens and patches counted; the decoder's own for an enc-dec).
-        Returns (logits (B,1,V), cache); the cache is updated in place."""
-        params = self.cast(params)
-        return self._decode_cast(params, cache, token, pos)
+        Returns (logits (B,1,V), cache); the cache is updated in place.
+        Span ``serve.decode_step``."""
+        # repro_torch.core imports this module: import its telemetry late
+        from repro_torch.core.telemetry import current
+        with current().span("serve.decode_step", cat="serve",
+                            device=self.device):
+            params = self.cast(params)
+            return self._decode_cast(params, cache, token, pos)
 
     # ------------------------------------------------------------------
     # Dry-run input specs (no allocation)

@@ -131,54 +131,74 @@ def block_cache_init(cfg, batch: int, cache_len: int, dtype,
 def block_decode(cfg, p: dict, x: torch.Tensor, cache: dict,
                  positions: torch.Tensor, window: int):
     """One-token decode. x: (B,1,D). Returns (x, cache), the cache updated
-    in place."""
+    in place. Spans ``serve.attention``, ``serve.ssm``, ``serve.ffn``."""
+    # repro_torch.core imports this module: import its telemetry late
+    from repro_torch.core.telemetry import current
     kind = cfg.block_kind
+    tel, dev = current(), x.device
     h = batch_only(rms_norm(x, p["norm_attn"], cfg.norm_eps))
     if kind == BLOCK_SSM:
-        y, _ = ssm_mod.ssm_decode(p["ssm"], cfg, h, cache["ssm"])
+        with tel.span("serve.ssm", cat="serve", device=dev):
+            y, _ = ssm_mod.ssm_decode(p["ssm"], cfg, h, cache["ssm"])
         x = x + y
     elif kind == BLOCK_HYBRID:
-        a, _ = attn.gqa_decode(p["attn"], cfg, h, cache["attn"], positions,
-                               window=window)
-        s, _ = ssm_mod.ssm_decode(p["ssm"], cfg, h, cache["ssm"])
+        with tel.span("serve.attention", cat="serve", device=dev):
+            a, _ = attn.gqa_decode(p["attn"], cfg, h, cache["attn"],
+                                   positions, window=window)
+        with tel.span("serve.ssm", cat="serve", device=dev):
+            s, _ = ssm_mod.ssm_decode(p["ssm"], cfg, h, cache["ssm"])
         x = x + 0.5 * (a + s)
-    elif _is_mla(cfg):
-        y, _ = attn.mla_decode(p["attn"], cfg, h, cache["attn"], positions)
-        x = x + y
     else:
-        y, _ = attn.gqa_decode(p["attn"], cfg, h, cache["attn"], positions,
-                               window=window)
+        with tel.span("serve.attention", cat="serve", device=dev):
+            if _is_mla(cfg):
+                y, _ = attn.mla_decode(p["attn"], cfg, h, cache["attn"],
+                                       positions)
+            else:
+                y, _ = attn.gqa_decode(p["attn"], cfg, h, cache["attn"],
+                                       positions, window=window)
         x = x + y
-    return _ffn(cfg, p, x, serve=True)[0], cache
+    with tel.span("serve.ffn", cat="serve", device=dev):
+        return _ffn(cfg, p, x, serve=True)[0], cache
 
 
 def block_prefill(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor,
                   window: int, cache_len: int, *, impl: str = "xla"):
     """Full-sequence pass that also produces this block's decode cache.
     Over ranks its normed stream is whole over "model" and each layer
-    head-parallel (``sharding/serve.py``), as a serve program's."""
+    head-parallel (``sharding/serve.py``), as a serve program's. Spans
+    ``serve.attention``, ``serve.ssm``, ``serve.ffn``."""
+    # repro_torch.core imports this module: import its telemetry late
+    from repro_torch.core.telemetry import current
     kind = cfg.block_kind
+    tel, dev = current(), x.device
     h = batch_only(rms_norm(x, p["norm_attn"], cfg.norm_eps))
     cache = {}
     if kind == BLOCK_SSM:
-        y, cache["ssm"] = ssm_mod.ssm_prefill(p["ssm"], cfg, h, impl=impl)
+        with tel.span("serve.ssm", cat="serve", device=dev):
+            y, cache["ssm"] = ssm_mod.ssm_prefill(p["ssm"], cfg, h,
+                                                  impl=impl)
         x = x + y
     elif kind == BLOCK_HYBRID:
-        a, cache["attn"] = attn.gqa_prefill(p["attn"], cfg, h, positions,
-                                            window=window,
-                                            cache_len=cache_len, impl=impl)
-        s, cache["ssm"] = ssm_mod.ssm_prefill(p["ssm"], cfg, h, impl=impl)
+        with tel.span("serve.attention", cat="serve", device=dev):
+            a, cache["attn"] = attn.gqa_prefill(
+                p["attn"], cfg, h, positions, window=window,
+                cache_len=cache_len, impl=impl)
+        with tel.span("serve.ssm", cat="serve", device=dev):
+            s, cache["ssm"] = ssm_mod.ssm_prefill(p["ssm"], cfg, h,
+                                                  impl=impl)
         x = x + 0.5 * (a + s)
-    elif _is_mla(cfg):
-        y, cache["attn"] = attn.mla_prefill(p["attn"], cfg, h, positions,
-                                            cache_len=cache_len)
-        x = x + y
     else:
-        y, cache["attn"] = attn.gqa_prefill(p["attn"], cfg, h, positions,
-                                            window=window,
-                                            cache_len=cache_len, impl=impl)
+        with tel.span("serve.attention", cat="serve", device=dev):
+            if _is_mla(cfg):
+                y, cache["attn"] = attn.mla_prefill(
+                    p["attn"], cfg, h, positions, cache_len=cache_len)
+            else:
+                y, cache["attn"] = attn.gqa_prefill(
+                    p["attn"], cfg, h, positions, window=window,
+                    cache_len=cache_len, impl=impl)
         x = x + y
-    return _ffn(cfg, p, x, serve=True)[0], cache
+    with tel.span("serve.ffn", cat="serve", device=dev):
+        return _ffn(cfg, p, x, serve=True)[0], cache
 
 
 def stack_init(gen: torch.Generator, cfg, n_layers: int) -> dict:

@@ -28,6 +28,21 @@ def _zeros(p):
     return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
 
 
+def _spanned(name: str, init: Callable, step: Callable) -> OuterOptimizer:
+    """The optimizer with its ``step`` under an ``outer.step`` span on
+    the aggregate's device."""
+    def spanned_step(global_params, aggregated, state):
+        leaves = _tree.leaves(aggregated)
+        dev = leaves[0].device if leaves and isinstance(
+            leaves[0], torch.Tensor) else None
+        # repro_torch.core imports this module: import its telemetry late
+        from repro_torch.core.telemetry import current
+        with current().span("outer.step", cat="outer", device=dev):
+            return step(global_params, aggregated, state)
+
+    return OuterOptimizer(name, init, spanned_step)
+
+
 def fedavg() -> OuterOptimizer:
     def init(params):
         return {}
@@ -35,7 +50,7 @@ def fedavg() -> OuterOptimizer:
     def step(global_params, aggregated, state):
         return aggregated, state
 
-    return OuterOptimizer("fedavg", init, step)
+    return _spanned("fedavg", init, step)
 
 
 def fedavgm(server_lr: float = 1.0, momentum: float = 0.9) -> OuterOptimizer:
@@ -49,7 +64,7 @@ def fedavgm(server_lr: float = 1.0, momentum: float = 0.9) -> OuterOptimizer:
                              global_params, mu)
         return new, {"mu": mu}
 
-    return OuterOptimizer("fedavgm", init, step)
+    return _spanned("fedavgm", init, step)
 
 
 def fedadam(server_lr: float = 1e-2, b1: float = 0.9, b2: float = 0.99,
@@ -70,7 +85,7 @@ def fedadam(server_lr: float = 1e-2, b1: float = 0.9, b2: float = 0.99,
             .to(g.dtype), global_params, m, v)
         return new, {"m": m, "v": v, "count": state["count"] + 1}
 
-    return OuterOptimizer("fedadam", init, step)
+    return _spanned("fedadam", init, step)
 
 
 OUTER_REGISTRY = {

@@ -5,7 +5,9 @@
 and ``reporting`` are framework-free in the reference, and the port keeps
 them line for line: with ``repro_torch`` read as ``repro``, each port
 source equals the reference source. The differences allowed are listed
-in ``ALLOWED``, by top-level name, each with its reason.
+in ``ALLOWED``, each with its reason: by top-level name (a class's name
+allows its whole body), or by ``Class.member`` for one member of a
+class whose other members stay the reference's.
 
 The FederatedForecasts data generator (``forecasting_series``,
 ``ForecastSiloDataset``) is copied too and draws the reference's batches.
@@ -32,7 +34,7 @@ ROOT = Path(__file__).resolve().parents[1]
 COPIES = ("metadata", "crypto", "serialization", "telemetry", "transport",
           "clients", "communicator", "governance", "validation", "jobs",
           "reporting")
-# top-level names whose source may differ, per module
+# names whose source may differ, per module
 ALLOWED = {
     # the reference turns jax arrays into numpy with ``jax.tree.map`` inside
     # ``pack``; the port does it with ``_to_numpy`` (tensors -> numpy, dicts
@@ -41,6 +43,34 @@ ALLOWED = {
     # codec) stay identical.
     "serialization": {"__doc__", "import jax", "import torch", "pack",
                       "_to_numpy"},
+    # the port's spans carry device time (CUDA timing events from a pool,
+    # resolved when read: ``Span._start``, ``_finish``, ``device_s``, and
+    # ``device_ms`` in ``export_trace``), record while a ``torch.profiler``
+    # session is on (``Telemetry.recording``, ``span``, ``open_span``),
+    # take ``actor`` and ``run_id`` from the enclosing span
+    # (``_open_span``), and reach the data plane and the models through
+    # the bundle in scope (``current``, ``scope``, ``process``);
+    # ``kernel_span`` is a device span (``_KernelSpan``, folded into
+    # ``kernel.seconds`` by ``_collect_kernels``) where the reference's
+    # ``_KernelTimer`` read the host clock. The registry, the null span,
+    # the ring, ``spans``, the incidents, ``anchor_trace`` and the digest
+    # stay the reference's.
+    "telemetry": {"__doc__", "import contextlib", "import contextvars",
+                  "import torch", "import torch.autograd.profiler as _profiler",
+                  "_EVENTS: Dict[int, list] = {}", "_cuda_index", "_record",
+                  "Span.__doc__", "Span.__slots__", "Span.__init__",
+                  "Span._start", "Span._finish", "Span.device_s",
+                  "_KernelSpan", "_KernelTimer",
+                  "Telemetry.__doc__", "Telemetry.__init__",
+                  "Telemetry.recording", "Telemetry.span",
+                  "Telemetry.open_span", "Telemetry._open_span",
+                  "Telemetry._close", "Telemetry.kernel_span",
+                  "Telemetry._kernel_done", "Telemetry._collect_kernels",
+                  "Telemetry.export_trace",
+                  "PROCESS_RING = 8192", "KERNEL_BACKLOG = 256",
+                  "_PROCESS = Telemetry(recorder_cap=PROCESS_RING)",
+                  '_SCOPE: contextvars.ContextVar = contextvars.ContextVar('
+                  '"telemetry")', "process", "current", "scope"},
 }
 
 
@@ -49,22 +79,50 @@ def _source(pkg: str, name: str) -> str:
     return re.sub(r"\brepro_torch\b", "repro", text)
 
 
+def _is_doc(i: int, node) -> bool:
+    return (i == 0 and isinstance(node, ast.Expr)
+            and isinstance(node.value, ast.Constant))
+
+
 def _nodes(text: str) -> dict:
-    """Top-level statements by name: defs and classes by name, imports by
-    their source line, the module docstring as ``__doc__``, anything else
-    by its source."""
+    """Top-level statements by name: defs by name, imports by their source
+    line, the module docstring as ``__doc__``, anything else by its
+    source. A class gives its ``class`` line under its name and each
+    statement of its body under ``Class.<name>``: the docstring as
+    ``__doc__``, a def by its name, an assignment by its target."""
     out = {}
     for i, node in enumerate(ast.parse(text).body):
         seg = ast.get_source_segment(text, node)
-        if (i == 0 and isinstance(node, ast.Expr)
-                and isinstance(node.value, ast.Constant)):
-            key = "__doc__"
-        elif isinstance(node, (ast.FunctionDef, ast.ClassDef)):
-            key = node.name
+        if _is_doc(i, node):
+            out["__doc__"] = seg
+        elif isinstance(node, ast.ClassDef):
+            out[node.name] = seg.split("\n")[0]
+            for j, member in enumerate(node.body):
+                mseg = ast.get_source_segment(text, member)
+                if _is_doc(j, member):
+                    name = "__doc__"
+                elif isinstance(member, (ast.FunctionDef, ast.ClassDef)):
+                    name = member.name
+                elif (isinstance(member, ast.Assign)
+                      and len(member.targets) == 1
+                      and isinstance(member.targets[0], ast.Name)):
+                    name = member.targets[0].id
+                else:
+                    name = mseg
+                out[f"{node.name}.{name}"] = mseg
+        elif isinstance(node, ast.FunctionDef):
+            out[node.name] = seg
         else:
-            key = seg
-        out[key] = seg
+            out[seg] = seg
     return out
+
+
+def _held(keys, allowed) -> set:
+    """The keys held to the reference: neither allowed by name nor a
+    member of an allowed class."""
+    return {k for k in keys if k not in allowed
+            and not (k.split(".")[0].isidentifier()
+                     and k.split(".")[0] in allowed)}
 
 
 @pytest.mark.parametrize("name", COPIES)
@@ -75,8 +133,8 @@ def test_control_plane_module_is_a_copy(name):
         assert port == ref
         return
     rn, pn = _nodes(ref), _nodes(port)
-    assert set(rn) - allowed == set(pn) - allowed
-    for key in set(rn) - allowed:
+    assert _held(rn, allowed) == _held(pn, allowed)
+    for key in _held(rn, allowed):
         assert rn[key] == pn[key], key
 
 
