@@ -6,6 +6,8 @@
 ``python3 chip_smoke.py --remat-only [--src DIR]`` runs phase 5a alone
 (no kernel built, no result line), on this checkout's package or on the
 one under ``DIR``: two checkouts' train steps in one call.
+``python3 chip_smoke.py --decode-graph-only`` runs phase 9b alone (no
+kernel built ahead: the prefills build K6 and K7 at their first call).
 
 Phases (every failed check exits non-zero):
 
@@ -220,6 +222,17 @@ Phases (every failed check exits non-zero):
    gemma2-9b, gemma3-4b and minicpm3-4b are cut to 14, 6 and 31 layers
    (printed), and gemma3-4b's second check runs on its first 8191
    tokens.
+9b. ``decode graph``: ``Model.decode_step`` replayed as one CUDA graph
+   (``models/decode_graph.py``) against the eager step on the card:
+   hymba-1.5b at full width as the benchmark's decode cell serves it
+   (bf16, batch 4, 1920-token prompts, 2304 cache slots), then the
+   reduced config of every other block family (dense, SSM, MLA, MoE,
+   vision, enc-dec) in bf16 on f32 masters. Two prefilled caches decode
+   8 steps each, interleaved A, B, A, B (each cache's first step eager,
+   its second captured, the rest replayed across the switches), beside
+   the eager step on copies of the caches. Gates: every step's logits
+   and every cache leaf after bitwise equal, the paths counted. Prints
+   the capture step's ms, the replay's and the eager step's ms a step.
 10. ``dryrun``: ``repro_torch.launch.dryrun`` on meta tensors at the
    shapes the card timed: phase 4's train step (8 x 256), the ``train
    pod`` step (two of it), phase 8's hymba-1.5b prefill and the prefill
@@ -2910,6 +2923,127 @@ def zoo_phase(device, card: str, counters) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 9b: the decode step replayed as a CUDA graph, against the eager step
+# ---------------------------------------------------------------------------
+# hymba-1.5b at full width as the decode cell of the benchmark serves it
+# (bf16 weights, batch 4, 1920-token prompts, a 2304-slot cache), then the
+# reduced config of every other block family in bf16 on its f32 masters
+# (the cast runs inside the graph, as in ``FLClientNode.predict``)
+GRAPH_FULL = (("hymba-1.5b", 4, 1920),)
+GRAPH_REDUCED = ("fedforecast-100m", "mamba2-780m", "minicpm3-4b",
+                 "olmoe-1b-7b", "internvl2-2b", "seamless-m4t-large-v2")
+GRAPH_STEPS = 8              # steps a cache, two caches interleaved
+GRAPH_HORIZON = 256          # the cache's slots past the prompt
+
+
+def decode_graph_arch(arch: str, reduced: bool, batch_size: int, prompt: int,
+                      device, card: str):
+    """Two prefilled caches decoded ``GRAPH_STEPS`` steps each, interleaved
+    A, B, A, B, through ``Model.decode_step`` (each cache's first step
+    eager, its second captures, the rest replay across the switches)
+    beside the same steps of the eager step (``Model._decode``) on copies
+    of the caches. Gates: every step's logits and every cache leaf after
+    bitwise equal, and the paths counted. Prints the capture step's ms
+    (host clock, synchronised), the replay's and the eager step's ms a
+    step (``median_ms``) and any difference with its size."""
+    import dataclasses
+
+    import torch
+    from repro_torch import tree
+    from repro_torch.configs import get_config
+    from repro_torch.core.telemetry import process
+    from repro_torch.launch import serve
+    from repro_torch.models import build_model
+
+    cfg = get_config(arch)
+    if reduced:
+        cfg = dataclasses.replace(cfg.reduced(), dtype="bfloat16")
+    model = build_model(cfg, impl="kernel", device=device)
+    params = model.init(model.generator(INIT_SEED))
+    if not reduced:
+        params = model.cast(params)
+    counts = process().metrics.labeled
+
+    def bits(a, b):
+        """(equal, max |a - b|)."""
+        return (torch.equal(a, b),
+                float((a.double() - b.double()).abs().max()) if a.numel()
+                else 0.0)
+
+    streams = []
+    with torch.no_grad():
+        for seed in (1, 2):
+            batch = serve.make_batch(cfg, batch_size, prompt, seed, device)
+            n0 = serve.stream_len(model, batch)
+            logits, cache = model.prefill(
+                params, batch, model.cache_len_for(n0 + GRAPH_HORIZON))
+            tok = torch.argmax(logits, -1)
+            streams.append({"n0": n0, "cache": cache, "tok": tok,
+                            "eager": tree.tree_map(torch.clone, cache),
+                            "etok": tok})
+        before = counts("serve.decode_graph", "path")
+        capture_ms, logit_eq, logit_err = [], 0, 0.0
+        for i in range(GRAPH_STEPS):
+            for st in streams:
+                pos = torch.full((batch_size, 1), st["n0"] + i,
+                                 dtype=torch.int32, device=device)
+                (logits, _), sec = sync_seconds(
+                    model.decode_step, params, st["cache"], st["tok"], pos)
+                if i == 1:
+                    capture_ms.append(sec * 1e3)
+                elogits, _ = model._decode(params, st["eager"], st["etok"],
+                                           pos)
+                eq, err = bits(logits, elogits)
+                logit_eq += eq
+                logit_err = max(logit_err, err)
+                st["tok"] = torch.argmax(logits, -1)
+                st["etok"] = torch.argmax(elogits, -1)
+        after = counts("serve.decode_graph", "path")
+        moved = {p: after.get(p, 0) - before.get(p, 0)
+                 for p in ("eager", "capture", "replay")}
+        leaves = [bits(a, b) for st in streams for a, b in
+                  zip(tree.leaves(st["cache"]), tree.leaves(st["eager"]))]
+        cache_eq = sum(eq for eq, _ in leaves)
+        cache_err = max(err for _, err in leaves)
+        st = streams[0]
+        pos = torch.full((batch_size, 1), st["n0"] + GRAPH_STEPS,
+                         dtype=torch.int32, device=device)
+        replay_ms = median_ms(lambda: model.decode_step(
+            params, st["cache"], st["tok"], pos), reps=10)
+        eager_ms = median_ms(lambda: model._decode(
+            params, st["eager"], st["etok"], pos), reps=10)
+    steps = GRAPH_STEPS * len(streams)
+    what = "reduced() in bf16 on f32 masters, " if reduced else ""
+    print(f"decode graph {arch}: {what}{cfg.n_layers} layers, batch "
+          f"{batch_size} x {prompt} prompt "
+          f"positions; capture {capture_ms[0]:.1f} / {capture_ms[1]:.1f} ms "
+          f"(each cache's second step), replay {replay_ms:.3f} ms a step, "
+          f"eager {eager_ms:.3f} ms a step ({eager_ms / replay_ms:.2f}x); "
+          f"logits bitwise in {logit_eq} of {steps} steps (max |diff| "
+          f"{logit_err:.3e}), cache leaves bitwise {cache_eq} of "
+          f"{len(leaves)} (max |diff| {cache_err:.3e}); paths {moved} "
+          f"[{card}]", flush=True)
+    check(moved == {"eager": 2, "capture": 2,
+                    "replay": steps - 4}, f"{arch}: each cache's first step "
+          f"eager, its second captured, the rest replayed (got {moved})")
+    check(logit_eq == steps, f"{arch}: the graph's logits bitwise the eager "
+          f"step's (max |diff| {logit_err:.3e})")
+    check(cache_eq == len(leaves), f"{arch}: the graph's caches bitwise the "
+          f"eager step's (max |diff| {cache_err:.3e})")
+
+
+def decode_graph_phase(device, card: str):
+    """Phase 9b: ``decode_graph_arch`` over ``GRAPH_FULL`` at full width,
+    then ``GRAPH_REDUCED`` at ``reduced()``."""
+    import torch
+    todo = [(a, False, b, p) for a, b, p in GRAPH_FULL] + [
+        (a, True, 2, 64) for a in GRAPH_REDUCED]
+    for arch, reduced, batch_size, prompt in todo:
+        decode_graph_arch(arch, reduced, batch_size, prompt, device, card)
+        torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
 # phase 10: the dry run, held against the steps the card timed
 # ---------------------------------------------------------------------------
 def train_card_count(state) -> dict:
@@ -3060,6 +3194,9 @@ def main() -> int:
 
     if "--remat-only" in sys.argv:
         remat_alone(device, card)
+        return 0
+    if "--decode-graph-only" in sys.argv:
+        decode_graph_phase(device, card)
         return 0
 
     from repro_torch.configs import get_config
@@ -3238,6 +3375,7 @@ def main() -> int:
     launches = {k: launches[k] + zoo.get(k, 0) for k in launches}
     print(f"main path with the zoo: launches {launches} [{card}]",
           flush=True)
+    run_phase("decode graph", peaks, card, decode_graph_phase, device, card)
     run_phase("dryrun", peaks, card, dryrun_phase, timed, card)
 
     for k in kernels:

@@ -56,8 +56,10 @@ def rope_frequencies(head_dim: int, theta: float,
                      device=None) -> torch.Tensor:
     exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
                         device=device) / head_dim
-    return 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
-                                        device=device), exps)
+    # theta stays a host scalar, which the kernel takes as an argument: a
+    # copy of it onto the card would wait for the host, and a captured
+    # decode step (``models/decode_graph.py``) cannot wait
+    return 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32), exps)
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,

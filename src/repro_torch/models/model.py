@@ -10,7 +10,8 @@ and a device, and exposes:
   * ``prefill(params, batch, cache_len)`` — logits for the last position
     and the decode cache
   * ``decode_step(params, cache, tok, pos)`` — one-token decode; updates
-    the cache in place and returns it
+    the cache in place and returns it; on CUDA a CUDA graph of the step
+    replays, and each cache is one buffer (``models/decode_graph.py``)
   * ``init_cache(batch, cache_len)``, ``cache_len_for(seq_len)``
   * ``abstract_params()``, ``abstract_cache(batch, cache_len)`` and
     ``input_specs(shape)`` — the same trees as tensors on the ``meta``
@@ -50,6 +51,7 @@ from repro_torch.configs.shapes import InputShape
 from repro_torch.device import DEFAULT_DEVICE, resolve
 from repro_torch.models import encdec, transformer
 from repro_torch.models.attention import IMPLS
+from repro_torch.models.decode_graph import DecodeGraphs
 from repro_torch.models.layers import (chunked_softmax_xent, dense_init,
                                        embed_init, rms_norm, softcap)
 from repro_torch.sharding.specs import replicated_call
@@ -101,6 +103,7 @@ class Model:
         self.impl = impl
         self.remat = bool(remat)
         self.device = resolve(device)
+        self._graphs = DecodeGraphs()
 
     def generator(self, seed: int) -> torch.Generator:
         """A seeded generator on the model's device, for ``init``."""
@@ -276,34 +279,45 @@ class Model:
         with current().span("serve.prefill", cat="serve",
                             device=self.device):
             cfg = self.cfg
-            params = self.cast(params)
+            # the cache before the activations: on the decode graphs' path
+            # it then takes the block a freed cache left, and the graphs'
+            # keys recur (models/decode_graph.py)
             if cfg.is_encoder_decoder:
-                return self._encdec_prefill(params, batch, cache_len)
+                B, Se = batch["frames"].shape[:2]
+                caches = self._encdec_cache(B, cache_len, Se)
+                return self._encdec_prefill(self.cast(params), batch, caches)
+            into = (self.init_cache(batch["tokens"].shape[0], cache_len)
+                    if self._graphs.on_path(self.device, params) else None)
+            params = self.cast(params)
             x, positions, _, _ = self._assemble_stream(params, batch)
             hidden, caches = transformer.stack_prefill(
                 cfg, params["stack"], x, positions,
-                transformer.layer_windows(cfg), cache_len, impl=self.impl)
+                transformer.layer_windows(cfg), cache_len, impl=self.impl,
+                stack=lambda trees: self._graphs.stack(self.device, trees,
+                                                       into))
             hidden = rms_norm(hidden[:, -1:], params["final_norm"],
                               cfg.norm_eps)
             return self._logits(params, hidden), caches
 
-    def _encdec_prefill(self, params, batch, cache_len):
-        """Encode the frames, fill every layer's cross K/V, and decode a
-        bos token (id 0) at decoder position 0."""
+    def _encdec_prefill(self, params, batch, caches):
+        """Encode the frames, fill every layer's cross K/V of ``caches``,
+        and decode a bos token (id 0) at decoder position 0."""
         enc_out = self._encode(params, batch["frames"], serve=True)
-        B, Se = enc_out.shape[:2]
-        caches = self._encdec_cache(B, cache_len, Se)
+        B = enc_out.shape[0]
         caches = encdec.decoder_fill_cross(self.cfg, params["dec_stack"],
                                            caches, enc_out)
         zeros = torch.zeros((B, 1), dtype=torch.int64, device=self.device)
         return self._decode_cast(params, caches, zeros, zeros)
 
+    def _stack(self, trees: list) -> dict:
+        """The layers' caches stacked into one cache (on the decode graphs'
+        path one buffer: ``DecodeGraphs.stack``)."""
+        return self._graphs.stack(self.device, trees)
+
     def _encdec_cache(self, batch: int, cache_len: int, enc_len: int):
         one = encdec.decoder_cache_init(self.cfg, batch, cache_len, enc_len,
                                         _dtype(self.cfg.dtype), self.device)
-        return _tree.tree_map(
-            lambda a: a[None].expand((self.cfg.n_layers,) + a.shape).clone(),
-            one)
+        return self._stack([one] * self.cfg.n_layers)
 
     def init_cache(self, batch: int, cache_len: int) -> dict:
         cfg = self.cfg
@@ -311,7 +325,7 @@ class Model:
             return self._encdec_cache(batch, cache_len, cache_len)
         return transformer.stack_cache_init(cfg, batch, cache_len,
                                             _dtype(cfg.dtype), cfg.n_layers,
-                                            self.device)
+                                            self.device, stack=self._stack)
 
     def abstract_cache(self, batch: int, cache_len: int) -> dict:
         """``init_cache``'s tree as meta tensors."""
@@ -349,17 +363,21 @@ class Model:
         hidden = rms_norm(hidden, params["final_norm"], cfg.norm_eps)
         return self._logits(params, hidden), cache
 
+    def _decode(self, params, cache, token, pos):
+        return self._decode_cast(self.cast(params), cache, token, pos)
+
     def decode_step(self, params: dict, cache: dict, token, pos):
         """token: (B,1) int; pos: (B,1) absolute stream position (meta
         tokens and patches counted; the decoder's own for an enc-dec).
         Returns (logits (B,1,V), cache); the cache is updated in place.
-        Span ``serve.decode_step``."""
+        On CUDA with autograd off the step replays as one CUDA graph
+        (``models/decode_graph.py``). Span ``serve.decode_step``."""
         # repro_torch.core imports this module: import its telemetry late
         from repro_torch.core.telemetry import current
         with current().span("serve.decode_step", cat="serve",
                             device=self.device):
-            params = self.cast(params)
-            return self._decode_cast(params, cache, token, pos)
+            return self._graphs(self._decode, self.device, params, cache,
+                                token, pos)
 
     # ------------------------------------------------------------------
     # Dry-run input specs (no allocation)

@@ -224,14 +224,15 @@ def stack_apply(cfg, stacked: dict, x: torch.Tensor,
 
 def stack_prefill(cfg, stacked: dict, x: torch.Tensor,
                   positions: torch.Tensor, windows, cache_len: int, *,
-                  impl: str = "xla"):
-    """Returns (x, stacked caches with leading (L,) axis)."""
+                  stack, impl: str = "xla"):
+    """Returns (x, stacked caches with leading (L,) axis): the layers'
+    caches stacked by ``stack`` (a list of trees -> one tree)."""
     caches = []
     for i, w in enumerate(np.asarray(windows).tolist()):
         x, cache = block_prefill(cfg, _tree.index(stacked, i), x, positions,
                                  int(w), cache_len, impl=impl)
         caches.append(cache)
-    return x, _tree.tree_map(lambda *xs: torch.stack(xs), *caches)
+    return x, stack(caches)
 
 
 def stack_decode(cfg, stacked: dict, x: torch.Tensor, caches: dict,
@@ -247,7 +248,8 @@ def stack_decode(cfg, stacked: dict, x: torch.Tensor, caches: dict,
 
 
 def stack_cache_init(cfg, batch: int, cache_len: int, dtype, n_layers: int,
-                     device) -> dict:
-    one = block_cache_init(cfg, batch, cache_len, dtype, device)
-    return _tree.tree_map(
-        lambda a: a[None].expand((n_layers,) + a.shape).clone(), one)
+                     device, *, stack) -> dict:
+    """A zero cache of ``n_layers`` layers, their trees stacked by
+    ``stack`` (a list of trees -> one tree)."""
+    return stack([block_cache_init(cfg, batch, cache_len, dtype, device)]
+                 * n_layers)
