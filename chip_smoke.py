@@ -233,6 +233,19 @@ Phases (every failed check exits non-zero):
    the eager step on copies of the caches. Gates: every step's logits
    and every cache leaf after bitwise equal, the paths counted. Prints
    the capture step's ms, the replay's and the eager step's ms a step.
+9c. ``nemotron``: nemotron-3-nano-30b-a3b whole at its published widths
+   (``--nemotron-only`` runs this phase alone). Grouped K7 at
+   (4, 4096, H 64, G 8, N 128) and K6 at the model's attention shape
+   (4 x 4096, 32 query heads over 2 KV heads of 128, causal) against
+   their plain versions; the grouped expert product against
+   ``torch.bmm`` an expert; a 4 x 4096 prefill (K6 and K7 launches
+   counted: 6 and 23) and 16 decode steps replayed bitwise the eager
+   step; the float32 reference layer by layer within the benchmark
+   cell's limits, and two controls failing one: fp8 projections, the
+   routed experts rolled by one (the picked weights reversed are read,
+   not gated: the cell's experts share a part). One MoE layer at full
+   width on independent experts against the float32 reference, with
+   the fp8 reference and both planted faults beyond its tolerance.
 10. ``dryrun``: ``repro_torch.launch.dryrun`` on meta tensors at the
    shapes the card timed: phase 4's train step (8 x 256), the ``train
    pod`` step (two of it), phase 8's hymba-1.5b prefill and the prefill
@@ -3044,6 +3057,391 @@ def decode_graph_phase(device, card: str):
 
 
 # ---------------------------------------------------------------------------
+# phase 9c: nemotron-3-nano-30b-a3b whole at its published widths
+# ---------------------------------------------------------------------------
+NEMO_ARCH = "nemotron-3-nano-30b-a3b"
+NEMO_BATCH, NEMO_PROMPT, NEMO_STEPS = 4, 4096, 16
+NEMO_SEED = 29
+# K7 in bf16 against its plain three passes in f32 on the same inputs
+NEMO_K7 = (4, 4096, 64, 64, 8, 128)          # b, S, H, P, G, N
+NEMO_MM = (128, 2688, 1856, 6)               # experts, D, F, top k
+NEMO_K6 = (4, 4096, 32, 2, 128)              # B, S, H, Hkv, D; causal
+# one MoE layer at full width on independent experts against the float32
+# reference on the same bf16 numbers (||y - ref|| / ||ref||): bf16 rounds
+# the hidden rows and the output, about 0.005; the fp8 reference, the
+# experts rolled by one and the picked weights reversed read 0.06-1.0 (a
+# CPU model at 128 experts of reduced widths)
+NEMO_MOE_TOL = 0.02
+# K6 and K7 launches of one prefill: one a * layer, one an M layer
+NEMO_LAUNCHES = {"flash_attention": 6, "ssd_scan": 23}
+# the grouped product against a bf16 product an expert: both accumulate
+# in f32 and round once to bf16, in other orders
+NEMO_MM_TOL = 2.0 ** -7
+
+
+def nemotron_kernels(device, card: str):
+    """Grouped K7 at the model's scan shape against its plain version and
+    against itself with B and C expanded to one group a head (bitwise:
+    the same sums); K6 in bf16 at the model's attention shape (16 query
+    heads a KV head, causal, no window) against its plain version, as
+    ``attention_kernel_phase`` holds it; the grouped expert product
+    (``moe.grouped_mm``) at a prefill's routed rows against ``torch.bmm``
+    an expert; then ``nemotron_moe_layer``."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.flash_attention import ref as fref
+    from repro_torch.kernels.ssd_scan import ops as sops
+    from repro_torch.kernels.ssd_scan import ref as sref
+    from repro_torch.models import moe
+
+    gen = torch.Generator(device=device).manual_seed(NEMO_SEED)
+    b, S, H, P, G, N = NEMO_K7
+    bf = torch.bfloat16
+    xbc = torch.randn(b, S, H * P + 2 * G * N, generator=gen, device=device,
+                      dtype=bf)
+    x = xbc[..., :H * P].reshape(b, S, H, P)
+    Bm = xbc[..., H * P:H * P + G * N].unflatten(-1, (G, N))
+    Cm = xbc[..., H * P + G * N:].unflatten(-1, (G, N))
+    dt = torch.nn.functional.softplus(torch.randn(
+        b, S, H, generator=gen, device=device)) * 0.1
+    A = -torch.exp(torch.randn(H, generator=gen, device=device) * 0.3)
+    y, h = sops.ssd_scan(x, dt, A, Bm, Cm, chunk=128)
+    yw, hw = sref.ssd_three_pass(x, dt, A, Bm, Cm, chunk=128)
+    check(all(bool(((g - w).abs() <= SSD_TOL + SSD_TOL * w.abs()).all())
+              for g, w in ((y, yw), (h, hw))),
+          f"grouped K7 matches its plain three passes at {NEMO_K7}")
+    Be, Ce = (m.repeat_interleave(H // G, dim=2).contiguous()
+              for m in (Bm, Cm))
+    ye, he = sops.ssd_scan(x, dt, A, Be, Ce, chunk=128)
+    check(torch.equal(y, ye) and torch.equal(h, he),
+          "grouped K7 bitwise itself with B and C expanded to the heads")
+    k7_ms = median_ms(lambda: sops.ssd_scan(x, dt, A, Bm, Cm, chunk=128))
+    exp_ms = median_ms(lambda: sops.ssd_scan(x, dt, A, Be, Ce, chunk=128))
+    print(f"nemotron K7 (b, S, H, P, G, N) {NEMO_K7}: {k7_ms:.4f} ms, "
+          f"B and C expanded to the heads {exp_ms:.4f} ms; max err "
+          f"{float((y - yw).abs().max()):.3g} (tol {SSD_TOL}) [{card}]",
+          flush=True)
+    del xbc, x, Bm, Cm, Be, Ce, y, h, yw, hw, ye, he
+
+    B6, S6, H6, Hkv6, D6 = NEMO_K6
+    q, k, v = (torch.randn(B6, S6, n, D6, generator=gen, device=device,
+                           dtype=bf) for n in (H6, Hkv6, Hkv6))
+
+    def plain(*qkv):
+        return fref.attention_ref(*(t.transpose(1, 2) for t in qkv),
+                                  scale=D6 ** -0.5, causal=True, window=0,
+                                  softcap=0.0).transpose(1, 2)
+    o = fops.flash_attention(q, k, v, causal=True, window=0,
+                             logit_softcap=0.0)
+    check(torch.equal(o, fops.flash_attention(q, k, v, causal=True,
+                                              window=0, logit_softcap=0.0)),
+          f"K6 repeat bitwise at {NEMO_K6}")
+    tol = FLASH_TOL["bfloat16"]
+    want = plain(q, k, v).float()
+    k6_err = float((o.float() - want).abs().max())
+    check(bool(((o.float() - want).abs() <= tol + tol * want.abs()).all()),
+          f"K6 matches plain at {NEMO_K6} bf16 causal: max err "
+          f"{k6_err:.3g} (tol {tol})")
+    del want
+    p32 = plain(q.float(), k.float(), v.float())
+    t32 = 2 * FLASH_TOL["float32"]
+    used = float(((o.float() - p32).abs() / (
+        BF16_HALF_ULP * p32.abs() + t32 + t32 * p32.abs())).max())
+    check(used <= 1.0, f"K6 bf16 store within half an ulp of the f32 plain "
+          f"version at {NEMO_K6}: {used:.3f} of the limit")
+    del p32
+    k6_ms = median_ms(lambda: fops.flash_attention(
+        q, k, v, causal=True, window=0, logit_softcap=0.0))
+    k6_tflops = 4 * B6 * H6 * D6 * S6 * (S6 + 1) / 2 / (k6_ms * 1e-3) / 1e12
+    print(f"nemotron K6 (B, S, H, Hkv, D) {NEMO_K6} causal: {k6_ms:.4f} ms "
+          f"({k6_tflops:.1f} TFLOP/s); max err {k6_err:.3g} (tol {tol}), "
+          f"bf16 store {used:.3f} of its half-ulp limit [{card}]",
+          flush=True)
+    del q, k, v, o
+    torch.cuda.empty_cache()
+
+    E, D, F_, K = NEMO_MM
+    rows = NEMO_BATCH * NEMO_PROMPT * K
+    picks = torch.randint(0, E, (rows,), generator=gen, device=device)
+    ends = torch.searchsorted(torch.sort(picks).values,
+                              torch.arange(E, device=device),
+                              right=True).to(torch.int32)
+    a = torch.randn(rows, D, generator=gen, device=device, dtype=bf)
+    w = (torch.randn(E, D, F_, generator=gen, device=device, dtype=bf)
+         * D ** -0.5)
+    got = moe.grouped_mm(a, w, ends)
+    bounds = [0] + ends.tolist()
+
+    def per_expert():
+        return torch.cat([torch.bmm(a[None, s:e], w[i][None])[0]
+                          for i, (s, e) in enumerate(zip(bounds, bounds[1:]))])
+    want = per_expert()
+    rel = float(((got.float() - want.float()).abs()
+                 / want.float().abs().clamp(min=2.0 ** -6)).max())
+    check(rel <= NEMO_MM_TOL, f"grouped expert product matches torch.bmm an "
+          f"expert (max rel err {rel:.3g}, tol {NEMO_MM_TOL})")
+    mm_ms = median_ms(lambda: moe.grouped_mm(a, w, ends))
+    bmm_ms = median_ms(per_expert)
+    tflops = 2 * rows * D * F_ / (mm_ms * 1e-3) / 1e12
+    print(f"nemotron grouped expert product ({rows} rows of {D} over {E} "
+          f"experts of {D} x {F_}): {mm_ms:.4f} ms ({tflops:.1f} TFLOP/s), "
+          f"torch.bmm an expert {bmm_ms:.4f} ms; max rel err {rel:.3g} "
+          f"[{card}]", flush=True)
+    del a, w, got, want
+    torch.cuda.empty_cache()
+    nemotron_moe_layer(device, card)
+
+
+def nemotron_moe_layer(device, card: str):
+    """One MoE layer at the published widths on independent random experts
+    (the benchmark's weights share a part across experts, so its check
+    sees a dispatch fault a tenth as far): ``moe.moe_apply`` in bf16 on
+    4 x 4096 tokens against the float32 reference's ``moe`` on the same
+    bf16 numbers, within ``NEMO_MOE_TOL``; the fp8 reference and two
+    planted faults (``nemotron_faults``' experts rolled by one and picked
+    weights reversed) beyond it."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+
+    if str(ROOT) not in sys.path:
+        sys.path.insert(0, str(ROOT))
+    from portbench.reference import nemotron_h as nref
+
+    cfg = get_config(NEMO_ARCH)
+    m, D = cfg.moe, cfg.d_model
+    E, F_, Fs = m.num_experts, m.d_expert, m.d_shared
+    gen = torch.Generator(device=device).manual_seed(NEMO_SEED + 1)
+
+    def draw(*shape, std):
+        return (torch.randn(*shape, generator=gen, device=device)
+                .clamp_(-2.0, 2.0).mul_(std).to(torch.bfloat16))
+    p = {"router": draw(D, E, std=D ** -0.5),
+         "router_bias": draw(E, std=0.05),
+         "w_up": draw(E, D, F_, std=D ** -0.5),
+         "w_down": draw(E, F_, D, std=F_ ** -0.5),
+         "shared_up": draw(D, Fs, std=D ** -0.5),
+         "shared_down": draw(Fs, D, std=Fs ** -0.5)}
+    h = draw(NEMO_BATCH, NEMO_PROMPT, D, std=1.0)
+    d = dataclasses.asdict(cfg)
+    pf = {k: v.float() for k, v in p.items()}
+    with torch.no_grad():
+        want = nref.moe(d, pf, h.float(), torch.matmul)
+
+        def err(y):
+            return float((y.float() - want).norm() / want.norm())
+        got = moe.moe_apply(p, cfg, h)[0]
+        moe_ms = median_ms(lambda: moe.moe_apply(p, cfg, h), reps=5)
+        errs = {"program": err(got),
+                "fp8": err(nref.moe(d, pf, h.float(), nref.projector("fp8")))}
+        del pf, got
+        rolled = dict(p, w_up=torch.roll(p["w_up"], 1, 0),
+                      w_down=torch.roll(p["w_down"], 1, 0))
+        errs["experts rolled"] = err(moe.moe_apply(rolled, cfg, h)[0])
+        del rolled
+        router = moe._router_sigmoid
+
+        def reversed_weights(p_, m_, xf):
+            w, idx = router(p_, m_, xf)
+            return w.flip(-1), idx
+        moe._router_sigmoid = reversed_weights
+        try:
+            errs["weights reversed"] = err(moe.moe_apply(p, cfg, h)[0])
+        finally:
+            moe._router_sigmoid = router
+    print(f"nemotron MoE layer at full width ({NEMO_BATCH} x {NEMO_PROMPT} "
+          f"tokens, {E} independent experts, top {m.top_k}): "
+          f"{moe_ms:.3f} ms; ||y - ref|| / ||ref|| {errs} (tol "
+          f"{NEMO_MOE_TOL}) [{card}]", flush=True)
+    check(errs["program"] <= NEMO_MOE_TOL, f"the MoE layer matches the "
+          f"float32 reference on independent experts ({errs['program']:.3g},"
+          f" tol {NEMO_MOE_TOL})")
+    for name in ("fp8", "experts rolled", "weights reversed"):
+        check(errs[name] > NEMO_MOE_TOL, f"the MoE layer's {name} control "
+              f"reads beyond {NEMO_MOE_TOL} ({errs[name]:.3g})")
+
+
+def nemotron_phase(device, card: str):
+    """Phase 9c: ``nemotron_kernels``; then the model at its published
+    widths on the seed's weights (the benchmark's draw, bf16): a 4 x 4096
+    prefill, ``NEMO_STEPS`` greedy decode steps through
+    ``Model.decode_step`` (replayed) beside the eager step on a copy of
+    the cache (bitwise), then, with the model freed, the float32
+    reference layer by layer over the prompt and the served tokens: the
+    benchmark cell's numbers against its limits, and two controls failing
+    by at least one of them: the fp8 reference, and the program's prefill
+    with its routed experts rolled by one (a dispatch fault). A prefill
+    with the picked weights reversed is read and not gated."""
+    import dataclasses
+    import json as _json
+
+    import torch
+    from repro_torch import tree
+    from repro_torch.configs import get_config
+    from repro_torch.core.telemetry import process
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.ssd_scan import ops as sops
+    from repro_torch.models import build_model
+    from repro_torch.models import moe
+
+    if str(ROOT) not in sys.path:
+        sys.path.insert(0, str(ROOT))
+    from portbench.reference import nemotron_h as nref
+
+    nemotron_kernels(device, card)
+    torch.cuda.empty_cache()
+    cfg = get_config(NEMO_ARCH)
+    d = dataclasses.asdict(cfg)
+    limits = _json.loads((ROOT / "portbench" / "limits" /
+                          f"{NEMO_ARCH}.prefill.json").read_text())
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = nref.make_params(d, NEMO_SEED, device, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n = sum(p.numel() for p in tree.leaves(params))
+    weights_gb = sum(p.numel() * p.element_size()
+                     for p in tree.leaves(params)) / 1e9
+    model = build_model(cfg, impl="kernel", device=device)
+    gen = torch.Generator(device=device).manual_seed(NEMO_SEED)
+    prompt = torch.randint(0, cfg.vocab, (NEMO_BATCH, NEMO_PROMPT),
+                           generator=gen, device=device)
+    cache_len = NEMO_PROMPT + NEMO_STEPS
+    counts = process().metrics.labeled
+    with torch.no_grad():
+        model.prefill(params, {"tokens": prompt}, cache_len)     # warm-up
+        prefill_ms = median_ms(lambda: model.prefill(
+            params, {"tokens": prompt}, cache_len), reps=3)
+        fops.reset_launches()
+        sops.reset_launches()
+        logits, cache = model.prefill(params, {"tokens": prompt}, cache_len)
+        torch.cuda.synchronize()
+        launches = {"flash_attention": sum(fops.LAUNCHES.values()),
+                    "ssd_scan": sops.LAUNCHES["ssd_scan"]}
+        eager = tree.tree_map(torch.clone, cache)
+        served, got = [torch.argmax(logits, -1)], [logits[:, 0].float()]
+        tok = etok = served[0]
+        before = counts("serve.decode_graph", "path")
+        logit_eq = 0
+        for i in range(NEMO_STEPS):
+            pos = torch.full((NEMO_BATCH, 1), NEMO_PROMPT + i,
+                             dtype=torch.int32, device=device)
+            logits, _ = model.decode_step(params, cache, tok, pos)
+            elogits, _ = model._decode(params, eager, etok, pos)
+            logit_eq += torch.equal(logits, elogits)
+            tok, etok = torch.argmax(logits, -1), torch.argmax(elogits, -1)
+            served.append(tok)
+            got.append(logits[:, 0].float())
+        after = counts("serve.decode_graph", "path")
+        moved = {p: after.get(p, 0) - before.get(p, 0)
+                 for p in ("eager", "capture", "replay")}
+        cache_eq = all(torch.equal(a, b) for a, b in
+                       zip(tree.leaves(cache), tree.leaves(eager)))
+        replay_ms = median_ms(lambda: model.decode_step(
+            params, cache, tok, pos), reps=10)
+        eager_ms = median_ms(lambda: model._decode(params, eager, etok, pos),
+                             reps=5)
+        del cache, eager
+        faults = nemotron_faults(model, params, prompt, cache_len, moe)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"nemotron {NEMO_ARCH}: {cfg.n_layers} layers "
+          f"({cfg.layer_pattern}), {n} params, {weights_gb:.2f} GB in bf16 "
+          f"drawn in {init_s:.2f} s; prefill {NEMO_BATCH} x {NEMO_PROMPT}: "
+          f"{prefill_ms:.2f} ms median of 3 "
+          f"({NEMO_BATCH * NEMO_PROMPT / prefill_ms * 1e3:.0f} tok/s); "
+          f"decode replay {replay_ms:.3f} ms a step, eager {eager_ms:.3f} ms "
+          f"({eager_ms / replay_ms:.2f}x); logits bitwise in {logit_eq} of "
+          f"{NEMO_STEPS} steps, caches bitwise {cache_eq}; paths {moved}; "
+          f"prefill launches {launches}; peak {peak:.2f} GiB [{card}]",
+          flush=True)
+    check(moved == {"eager": 1, "capture": 1, "replay": NEMO_STEPS - 2},
+          f"{NEMO_ARCH}: the first step eager, the second captured, the "
+          f"rest replayed (got {moved})")
+    check(logit_eq == NEMO_STEPS and cache_eq,
+          f"{NEMO_ARCH}: the replayed decode bitwise the eager step")
+    served = torch.cat(served, 1)                          # (B, 1 + steps)
+    got = torch.stack(got, 1)                              # (B, 1 + steps, V)
+    del model, params, logits, elogits
+    torch.cuda.empty_cache()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    stream = torch.cat([prompt, served[:, :NEMO_STEPS]], 1)
+    positions = list(range(NEMO_PROMPT - 1, NEMO_PROMPT + NEMO_STEPS))
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        want = nref.logits_from_seed(d, NEMO_SEED, stream, positions)
+        fp8 = nref.logits_from_seed(d, NEMO_SEED, stream, positions,
+                                    quant="fp8")
+    ref_s = time.perf_counter() - t0
+
+    def numbers(logits, ids, ref):
+        gap = ref.max(-1).values - ref.gather(-1, ids[..., None])[..., 0]
+        centred = ref - ref.mean(-1, keepdim=True)
+        err = ((logits - ref).square().mean(-1).sqrt()
+               / centred.square().mean(-1).sqrt())
+        return {"gap": float(gap.max()), "logit_err": float(err.max())}
+    prog = numbers(got, served, want)
+    prog.update({f"{k}.prefill": v for k, v in numbers(
+        got[:, :1], served[:, :1], want[:, :1]).items()})
+    ctrl = numbers(fp8, fp8.argmax(-1), want)
+    # a planted fault's prefill logits against the reference's at the
+    # prompt's last position, the position the benchmark cell checks
+    planted = {name: numbers(f[:, None], f[:, None].argmax(-1), want[:, :1])
+               for name, f in faults.items()}
+    print(f"nemotron check (the reference layer by layer, {ref_s:.1f} s for "
+          f"it and its fp8 control): program {prog}, fp8 control {ctrl}, "
+          f"planted faults at the prefill {planted}, limits {limits} "
+          f"[{card}]", flush=True)
+    check(all(prog[k] <= v for k, v in limits.items()),
+          f"{NEMO_ARCH}: prefill and decode within the cell's limits")
+    check(any(ctrl[k] > v for k, v in limits.items()),
+          f"{NEMO_ARCH}: the fp8 control fails a limit")
+    # the picked weights reversed move the logits less than bf16 does
+    # (the experts' shared part), so the cell's check cannot see it;
+    # ``nemotron_moe_layer`` holds it on independent experts
+    check(any(planted["experts rolled"][k] > v for k, v in limits.items()),
+          f"{NEMO_ARCH}: the planted fault 'experts rolled' fails a limit")
+    check(launches == NEMO_LAUNCHES, f"{NEMO_ARCH}: a prefill launches K6 "
+          f"and K7 {NEMO_LAUNCHES} (got {launches})")
+
+
+def nemotron_faults(model, params, prompt, cache_len, moe) -> dict:
+    """The prefill's last-position logits (B, V) in f32 under each planted
+    dispatch fault: ``experts rolled``, every E layer's routed experts
+    rolled by one (a pick of expert e computed by expert e-1); ``weights
+    reversed``, the router's picked weights in the reverse order of its
+    picks. ``params`` is restored after each."""
+    import torch
+    out = {}
+    experts = params["stack"]["moe"]
+
+    def roll(shift):
+        for name in ("w_up", "w_down"):
+            for j in range(experts[name].shape[0]):
+                experts[name][j].copy_(torch.roll(experts[name][j], shift,
+                                                  0))
+    roll(1)
+    try:
+        out["experts rolled"] = model.prefill(
+            params, {"tokens": prompt}, cache_len)[0][:, 0].float()
+    finally:
+        roll(-1)
+    router = moe._router_sigmoid
+
+    def reversed_weights(p, m, xf):
+        w, idx = router(p, m, xf)
+        return w.flip(-1), idx
+    moe._router_sigmoid = reversed_weights
+    try:
+        out["weights reversed"] = model.prefill(
+            params, {"tokens": prompt}, cache_len)[0][:, 0].float()
+    finally:
+        moe._router_sigmoid = router
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 10: the dry run, held against the steps the card timed
 # ---------------------------------------------------------------------------
 def train_card_count(state) -> dict:
@@ -3197,6 +3595,9 @@ def main() -> int:
         return 0
     if "--decode-graph-only" in sys.argv:
         decode_graph_phase(device, card)
+        return 0
+    if "--nemotron-only" in sys.argv:
+        nemotron_phase(device, card)
         return 0
 
     from repro_torch.configs import get_config
@@ -3376,6 +3777,8 @@ def main() -> int:
     print(f"main path with the zoo: launches {launches} [{card}]",
           flush=True)
     run_phase("decode graph", peaks, card, decode_graph_phase, device, card)
+    torch.cuda.empty_cache()
+    run_phase("nemotron", peaks, card, nemotron_phase, device, card)
     run_phase("dryrun", peaks, card, dryrun_phase, timed, card)
 
     for k in kernels:

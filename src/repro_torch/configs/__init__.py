@@ -1,5 +1,6 @@
-"""Architecture configs. Importing this package registers every arch (the
-reference's eleven, ``repro.configs``)."""
+"""Architecture configs. Importing this package registers every arch: the
+reference's eleven (``repro.configs``) and the port's own
+``PORT_ONLY_ARCHS``."""
 from repro_torch.configs.base import (FrontendConfig, MLAConfig,  # noqa: F401
                                       ModelConfig, MoEConfig, SSMConfig,
                                       get_config, list_configs, register)
@@ -18,9 +19,13 @@ from repro_torch.configs import internvl2_2b           # noqa: F401
 from repro_torch.configs import dbrx_132b              # noqa: F401
 from repro_torch.configs import minicpm3_4b            # noqa: F401
 from repro_torch.configs import fedforecast_100m       # noqa: F401
+from repro_torch.configs import nemotron_3_nano_30b_a3b  # noqa: F401
 
 ASSIGNED_ARCHS = (
     "mamba2-780m", "seamless-m4t-large-v2", "command-r-plus-104b",
     "gemma2-9b", "olmoe-1b-7b", "hymba-1.5b", "gemma3-4b",
     "internvl2-2b", "dbrx-132b", "minicpm3-4b",
 )
+
+# registered here and not in the reference
+PORT_ONLY_ARCHS = ("nemotron-3-nano-30b-a3b",)

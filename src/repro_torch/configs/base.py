@@ -18,6 +18,13 @@ BLOCK_ATTN = "attn"       # attention + MLP
 BLOCK_SSM = "ssm"         # Mamba2 SSD block
 BLOCK_HYBRID = "hybrid"   # parallel attention + SSM heads (Hymba)
 BLOCK_MOE = "moe"         # attention + MoE MLP
+BLOCK_PATTERN = "pattern" # one mixer a layer, by ``layer_pattern``
+
+# the kinds of a ``layer_pattern`` (Nemotron-H's ``hybrid_override_pattern``)
+LAYER_SSM = "M"           # pre-norm Mamba2 mixer
+LAYER_MOE = "E"           # pre-norm MoE MLP
+LAYER_ATTN = "*"          # pre-norm GQA attention
+LAYER_KINDS = {LAYER_SSM: "mamba", LAYER_MOE: "moe", LAYER_ATTN: "attention"}
 
 
 @dataclass(frozen=True)
@@ -27,6 +34,13 @@ class MoEConfig:
     d_expert: int
     capacity_factor: float = 1.25
     router_aux_weight: float = 0.01
+    # the port's own options; the defaults are the reference's MoE
+    router: str = "softmax"       # softmax | sigmoid (scores, not probs)
+    score_bias: bool = False      # a bias on the scores that picks, not weighs
+    routed_scale: float = 1.0     # the picked weights' scale after the norm
+    d_shared: int = 0             # one always-on expert of this width
+    activation: str = "swiglu"    # swiglu | relu2 (non-gated relu squared)
+    dropless: bool = False        # every pick computed: no capacity
 
 
 @dataclass(frozen=True)
@@ -68,7 +82,7 @@ class ModelConfig:
     attn_kind: str = ATTN_GQA
     head_dim: int = 0             # 0 -> d_model // n_heads
     rope_theta: float = 10_000.0
-    sliding_window: int = 0       # 0 -> global attention
+    sliding_window: Optional[int] = 0   # 0 or None -> global attention
     local_global_period: int = 0
     attn_logit_softcap: float = 0.0
     final_logit_softcap: float = 0.0
@@ -86,6 +100,12 @@ class ModelConfig:
     norm_eps: float = 1e-6
     dtype: str = "bfloat16"
     subquadratic_decode: bool = False
+    # the port's own options, None in every configuration of the reference
+    layer_pattern: Optional[str] = None   # one kind a layer (LAYER_KINDS)
+    rotary: Optional[bool] = None         # False: no position rotation
+    scale_embeddings: Optional[bool] = None  # False: no sqrt(d_model)
+    ssm_groups: Optional[int] = None      # B/C groups (None: 1)
+    ssm_heads: Optional[int] = None       # SSM heads (None: d_inner/d_head)
 
     @property
     def padded_vocab(self) -> int:
@@ -101,15 +121,37 @@ class ModelConfig:
     def d_inner_ssm(self) -> int:
         if self.ssm is None:
             raise ValueError(f"{self.name} has no SSM")
+        if self.ssm_heads:
+            return self.ssm_heads * self.ssm.d_head
         return self.ssm.expand * self.d_model
 
     @property
     def n_ssm_heads(self) -> int:
         return self.d_inner_ssm // self.ssm.d_head
 
+    @property
+    def n_ssm_groups(self) -> int:
+        return self.ssm_groups or 1
+
+    @property
+    def has_rotary(self) -> bool:
+        return self.rotary is not False
+
+    def layer_kinds(self) -> Tuple[str, ...]:
+        """Each layer's kind (a ``LAYER_KINDS`` key) where the config has
+        a ``layer_pattern``; empty otherwise."""
+        if not self.layer_pattern:
+            return ()
+        if len(self.layer_pattern) != self.n_layers or \
+                set(self.layer_pattern) - set(LAYER_KINDS):
+            raise ValueError(f"{self.name}: layer_pattern "
+                             f"{self.layer_pattern!r} is not {self.n_layers} "
+                             f"of {sorted(LAYER_KINDS)}")
+        return tuple(self.layer_pattern)
+
     def layer_is_local(self, i: int) -> bool:
         """True if layer ``i`` uses sliding-window (local) attention."""
-        if self.sliding_window <= 0:
+        if (self.sliding_window or 0) <= 0:
             return False
         if self.local_global_period <= 0:
             return True
@@ -138,10 +180,18 @@ class ModelConfig:
             dtype="float32",
         )
         if self.moe is not None:
-            changes["moe"] = MoEConfig(
-                num_experts=4, top_k=2, d_expert=min(self.moe.d_expert, 128),
-                capacity_factor=100.0,
-                router_aux_weight=self.moe.router_aux_weight)
+            changes["moe"] = dataclasses.replace(
+                self.moe, num_experts=4, top_k=2,
+                d_expert=min(self.moe.d_expert, 128), capacity_factor=100.0,
+                d_shared=min(self.moe.d_shared, 256))
+        if self.layer_pattern:
+            # one layer of each kind, in the order they first appear
+            kinds = "".join(dict.fromkeys(self.layer_pattern))
+            changes.update(n_layers=len(kinds), layer_pattern=kinds)
+        if self.ssm_groups:
+            changes["ssm_groups"] = min(self.ssm_groups, 2)
+        if self.ssm_heads:
+            changes["ssm_heads"] = min(self.ssm_heads, 8)
         if self.ssm is not None:
             changes["ssm"] = SSMConfig(
                 d_state=min(self.ssm.d_state, 16), d_head=32,

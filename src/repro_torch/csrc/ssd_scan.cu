@@ -12,8 +12,10 @@
 //
 // x: (b, S, H, P) read through its (b, s, h) element strides, p contiguous;
 // dt: (b, S, H) f32 through its (b, s, h) strides; A: (H,) f32 contiguous;
-// B, C: (b, S, N) through their (b, s) strides, n contiguous (ngroups = 1:
-// every head shares them). x, B and C are float32 or bfloat16 (all three
+// B, C: (b, S, G, N) through their (b, s, g) strides, n contiguous: G
+// groups, head h reading group h / (H / G) (G = 1: every head shares
+// them, the reference's (b, S, N)). Each group's rows are read by group,
+// never expanded to heads. x, B and C are float32 or bfloat16 (all three
 // the same), widened to f32 on load as the TPU kernel does. Outputs, both
 // contiguous f32: y (b, S, H, P) and the final state (b, H, P, N).
 //
@@ -35,10 +37,10 @@
 // as it is, and each CTA issues all its global loads (16 bytes a load
 // where rows are aligned; cp.async for the scratch) before its first
 // barrier.
-//  1. chunk_k, one CTA per (head or C B^T, chunk, batch), (H+1) x nc x b:
-//     the extra CTA of a (batch, chunk) computes its C B^T once for all
-//     heads (as the TPU kernel's per-(batch, chunk) program does), stored
-//     transposed; a head's CTA scans L = cumsum(dt A) in one warp (shuffle
+//  1. chunk_k, one CTA per (head or group's C B^T, chunk, batch),
+//     (H+G) x nc x b: the G extra CTAs of a (batch, chunk) compute each
+//     group's C B^T once for all its heads (as the TPU kernel's
+//     per-(batch, chunk) program does at G = 1), stored transposed; a head's CTA scans L = cumsum(dt A) in one warp (shuffle
 //     scans over 32-step segments), stores it, and computes the chunk's own
 //     state S_c = sum_s exp(L_last - L_s) dt_s B_s x_s^T (N x P).
 //  2. pass_k, one thread per (batch, head, n, p): walks the chunks in
@@ -123,12 +125,13 @@ size_t output_floats(int qp, int p, int n) {
 
 struct Dims {
   int S, H, P, N, Q, Qp, nc;
+  int G, hpg;                           // B/C groups, heads a group
   int xvec;                             // x's rows 16-byte aligned
   int bcvec;                            // B's and C's rows 16-byte aligned
 };
 
 struct Strides {
-  long long x_b, x_s, x_h, dt_b, dt_s, dt_h, b_b, b_s, c_b, c_s;
+  long long x_b, x_s, x_h, dt_b, dt_s, dt_h, b_b, b_s, c_b, c_s, b_g, c_g;
 };
 
 // x of one (batch, chunk, head) widened into smem [Qp][P]; rows past the
@@ -223,8 +226,8 @@ __device__ __forceinline__ float load_dt(const float* __restrict__ dt,
              : 0.f;
 }
 
-// pass 1: C B^T (blockIdx.x == H) or a head's L and chunk state S_c. Every
-// global load of a CTA is issued before its first barrier.
+// pass 1: a group's C B^T (blockIdx.x >= H) or a head's L and chunk state
+// S_c. Every global load of a CTA is issued before its first barrier.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 chunk_k(const T* __restrict__ x, const float* __restrict__ dt,
@@ -236,14 +239,16 @@ chunk_k(const T* __restrict__ x, const float* __restrict__ dt,
   const int tid = threadIdx.x;
   const int Qp = d.Qp, P = d.P, N = d.N;
 
-  if (h == d.H) {
-    // cbt[s][t] = C_t . B_s for s <= t (0 above), once for every head
+  if (h >= d.H) {
+    // cbt[s][t] = C_t . B_s for s <= t (0 above), once for every head of
+    // group g
+    const int g = h - d.H;
     float* ct = smem;                   // [N][Qp]  C transposed
     float* bs = ct + N * Qp;            // [Qp][N]
-    stage_rows<kThreads>(cm, st.c_b, st.c_s, ct, true, d, b, c);
-    stage_rows<kThreads>(bm, st.b_b, st.b_s, bs, false, d, b, c);
+    stage_rows<kThreads>(cm + g * st.c_g, st.c_b, st.c_s, ct, true, d, b, c);
+    stage_rows<kThreads>(bm + g * st.b_g, st.b_b, st.b_s, bs, false, d, b, c);
     __syncthreads();
-    float* out = cbt + ((long long)b * d.nc + c) * Qp * Qp;
+    float* out = cbt + (((long long)b * d.nc + c) * d.G + g) * Qp * Qp;
     for (int s = tid / 32; s < Qp; s += kThreads / 32) {
       for (int t = tid % 32; t < Qp; t += 32) {
         float dot = 0.f;
@@ -264,7 +269,8 @@ chunk_k(const T* __restrict__ x, const float* __restrict__ dt,
   float* bw = xs + Qp * P;              // [Qp][N]  B_s exp(L_last - L_s) dt_s
   if (tid < Qp) dts[tid] = load_dt(dt, d, st, b, c, h);
   stage_x<kThreads>(x, xs, d, st, b, c, h);
-  stage_rows<kThreads>(bm, st.b_b, st.b_s, bw, false, d, b, c);
+  stage_rows<kThreads>(bm + h / d.hpg * st.b_g, st.b_b, st.b_s, bw, false, d,
+                       b, c);
   __syncthreads();
   if (tid < 32) {                       // L = cumsum(dt A), one warp
     const float ah = a[h];
@@ -355,7 +361,8 @@ output_k(const T* __restrict__ x, const float* __restrict__ dt,
   float* dts = L + Qp;                  // [Qp]
 
   const long long row = ((long long)b * d.nc + c) * d.H + h;
-  const float* cb = cbt + ((long long)b * d.nc + c) * Qp * Qp;
+  const int g = h / d.hpg;
+  const float* cb = cbt + (((long long)b * d.nc + c) * d.G + g) * Qp * Qp;
   for (int i = tid * 4; i < Qp * Qp; i += kOutThreads * 4) {
     copy16(&att[i], &cb[i]);
   }
@@ -367,7 +374,8 @@ output_k(const T* __restrict__ x, const float* __restrict__ dt,
   }
   if (tid < Qp) dts[tid] = load_dt(dt, d, st, b, c, h);
   stage_x<kOutThreads>(x, xs, d, st, b, c, h);
-  stage_rows<kOutThreads>(cm, st.c_b, st.c_s, ct, true, d, b, c);
+  stage_rows<kOutThreads>(cm + g * st.c_g, st.c_b, st.c_s, ct, true, d, b,
+                          c);
   copy_wait();
   __syncthreads();
   // att[s][t] = C_t . B_s exp(L_t - L_s) dt_s for s <= t, else 0, in place
@@ -452,8 +460,8 @@ output_k(const T* __restrict__ x, const float* __restrict__ dt,
 template <typename T>
 int launch(const void* x, const void* dt, const void* a, const void* bm,
            const void* cm, void* y, void* state, void* cbt, void* lg,
-           void* hs, void* hin, int b, int s, int h, int p, int n, int q,
-           const long long* st, cudaStream_t stream) {
+           void* hs, void* hin, int b, int s, int h, int p, int n, int g,
+           int q, const long long* st, cudaStream_t stream) {
   const long long es = sizeof(T);
   auto aligned = [](const void* ptr, long long s0, long long s1,
                     long long s2) {
@@ -463,11 +471,12 @@ int launch(const void* x, const void* dt, const void* a, const void* bm,
   const bool xvec = aligned(x, st[0] * es, st[1] * es, st[2] * es) &&
                     p * es % 16 == 0;
   const bool bcvec = aligned(bm, st[6] * es, st[7] * es, n * es) &&
-                     aligned(cm, st[8] * es, st[9] * es, n * es);
-  const Dims d{s, h, p, n, q, pad_rows(q), (s + q - 1) / q, xvec ? 1 : 0,
-               bcvec ? 1 : 0};
-  const Strides ss{st[0], st[1], st[2], st[3], st[4],
-                   st[5], st[6], st[7], st[8], st[9]};
+                     aligned(cm, st[8] * es, st[9] * es, n * es) &&
+                     st[10] * es % 16 == 0 && st[11] * es % 16 == 0;
+  const Dims d{s, h, p, n, q, pad_rows(q), (s + q - 1) / q, g, h / g,
+               xvec ? 1 : 0, bcvec ? 1 : 0};
+  const Strides ss{st[0], st[1], st[2], st[3], st[4],  st[5],
+                   st[6], st[7], st[8], st[9], st[10], st[11]};
   const size_t s1 = chunk_floats(d.Qp, p, n) * sizeof(float);
   const size_t s3 = output_floats(d.Qp, p, n) * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
@@ -492,7 +501,7 @@ int launch(const void* x, const void* dt, const void* a, const void* bm,
   float* hsf = static_cast<float*>(hs);
   float* hinf = static_cast<float*>(hin);
   if (d.nc > 0) {
-    chunk_k<T><<<dim3(h + 1, d.nc, b), kThreads, s1, stream>>>(
+    chunk_k<T><<<dim3(h + g, d.nc, b), kThreads, s1, stream>>>(
         xt, dtf, static_cast<const float*>(a), bt, ctp, cbf, lgf, hsf, d, ss);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
@@ -519,10 +528,11 @@ long long ssd_scan_smem_bytes(int q, int p, int n) {
   return (long long)((a > c ? a : c) * sizeof(float));
 }
 
-// dtype: 0 float32, 1 bfloat16 (x, B and C). strides: 10 element strides,
-// x (b, s, h), dt (b, s, h), B (b, s), C (b, s). q: the chunk length,
-// 1 <= q; p a multiple of 4. Scratch, all f32 and contiguous, from the
-// caller: cbt (b, nc, Qp, Qp), lg (b, nc, H, Qp), hs and hin
+// dtype: 0 float32, 1 bfloat16 (x, B and C). g: B/C groups, dividing h.
+// strides: 12 element strides, x (b, s, h), dt (b, s, h), B (b, s),
+// C (b, s), B (g), C (g). q: the chunk length, 1 <= q; p a multiple of 4.
+// Scratch, all f32 and contiguous, from the caller: cbt (b, nc, g, Qp, Qp),
+// lg (b, nc, H, Qp), hs and hin
 // (b, nc, H, N, P) (each chunk's own state, the state entering it), with
 // nc = ceil(s / q) and Qp = q rounded up to a multiple of 8. Returns
 // cudaGetLastError() after the launches (0 = launched), or
@@ -531,11 +541,12 @@ long long ssd_scan_smem_bytes(int q, int p, int n) {
 int ssd_scan_fwd(const void* x, const void* dt, const void* a, const void* bm,
                  const void* cm, void* y, void* state, void* cbt, void* lg,
                  void* hs, void* hin, int dtype, int b, int s, int h, int p,
-                 int n, int q, const long long* strides, int device,
+                 int n, int g, int q, const long long* strides, int device,
                  void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (b < 0 || s < 0 || h < 0 || p <= 0 || p % kTP || n <= 0 || q <= 0 ||
+      g <= 0 || h % g ||
       pad_rows(q) > kThreads ||
       (size_t)ssd_scan_smem_bytes(q, p, n) > kMaxSmem) {
     return (int)cudaErrorInvalidValue;
@@ -544,11 +555,11 @@ int ssd_scan_fwd(const void* x, const void* dt, const void* a, const void* bm,
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   if (dtype == 0) {
     return launch<float>(x, dt, a, bm, cm, y, state, cbt, lg, hs, hin, b, s,
-                         h, p, n, q, strides, st);
+                         h, p, n, g, q, strides, st);
   }
   if (dtype == 1) {
     return launch<__nv_bfloat16>(x, dt, a, bm, cm, y, state, cbt, lg, hs,
-                                 hin, b, s, h, p, n, q, strides, st);
+                                 hin, b, s, h, p, n, g, q, strides, st);
   }
   return (int)cudaErrorInvalidValue;
 }

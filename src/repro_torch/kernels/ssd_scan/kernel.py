@@ -45,12 +45,13 @@ def smem_bytes(q: int, p: int, n: int) -> int:
     return 4 * max(out, chunk)
 
 
-def scratch_shapes(b: int, S: int, H: int, P: int, N: int, q: int):
-    """The f32 scratch of one call: C B^T transposed (b, nc, Qp, Qp), L
-    (b, nc, H, Qp), each chunk's own state and the state entering it
-    (b, nc, H, N, P) each."""
+def scratch_shapes(b: int, S: int, H: int, P: int, N: int, q: int,
+                   g: int = 1):
+    """The f32 scratch of one call: each group's C B^T transposed
+    (b, nc * g, Qp, Qp), L (b, nc, H, Qp), each chunk's own state and the
+    state entering it (b, nc, H, N, P) each."""
     nc, qp = -(-S // q), padded_chunk(q)
-    return {"cbt": (b, nc, qp, qp), "L": (b, nc, H, qp),
+    return {"cbt": (b, nc * g, qp, qp), "L": (b, nc, H, qp),
             "states": (b, nc, H, N, P), "entering": (b, nc, H, N, P)}
 
 
@@ -59,7 +60,7 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     from a variant of it)."""
     lib.ssd_scan_fwd.argtypes = [
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-        _I,
+        _I, _I,
         ctypes.POINTER(ctypes.c_longlong), _I, _P]
     lib.ssd_scan_fwd.restype = _I
     return lib
@@ -73,20 +74,25 @@ def _lib() -> ctypes.CDLL:
 def ssd_scan_chunked(x, dt, A, B, C, y, state, *, chunk: int,
                      lib: ctypes.CDLL = None):
     """K7: y, state = chunked SSD scan of (x, dt, A, B, C) with chunk
-    length ``chunk`` (<= S); y (b,S,H,P) and state (b,H,P,N) contiguous
-    f32 outputs. ``lib``: a library built from a variant of the source
-    (``bind`` first); the committed one by default."""
+    length ``chunk`` (<= S); B and C (b,S,N), or (b,S,G,N) in G groups;
+    y (b,S,H,P) and state (b,H,P,N) contiguous f32 outputs. ``lib``: a
+    library built from a variant of the source (``bind`` first); the
+    committed one by default."""
     b, S, H, P = x.shape
     N = B.shape[-1]
+    G = B.shape[2] if B.dim() == 4 else 1
+    gs = (B.stride(2), C.stride(2)) if B.dim() == 4 else (0, 0)
     scratch = {k: torch.empty(shape, dtype=torch.float32, device=x.device)
-               for k, shape in scratch_shapes(b, S, H, P, N, chunk).items()}
-    strides = (ctypes.c_longlong * 10)(
+               for k, shape in scratch_shapes(b, S, H, P, N, chunk,
+                                              G).items()}
+    strides = (ctypes.c_longlong * 12)(
         x.stride(0), x.stride(1), x.stride(2), dt.stride(0), dt.stride(1),
-        dt.stride(2), B.stride(0), B.stride(1), C.stride(0), C.stride(1))
+        dt.stride(2), B.stride(0), B.stride(1), C.stride(0), C.stride(1),
+        *gs)
     _call((lib or _lib()).ssd_scan_fwd, "ssd_scan", x.device,
           x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
           C.data_ptr(), y.data_ptr(), state.data_ptr(),
           *(scratch[k].data_ptr()
             for k in ("cbt", "L", "states", "entering")),
-          DTYPES[x.dtype], b, S, H, P, N, int(chunk), strides)
+          DTYPES[x.dtype], b, S, H, P, N, G, int(chunk), strides)
     return y, state

@@ -32,10 +32,12 @@ def check_ssd_scan(x, dt, A, B, C, chunk):
     if x.dim() != 4:
         raise ValueError(f"x must be (b,S,H,P), got {tuple(x.shape)}")
     b, S, H, P = x.shape
-    if B.dim() != 3 or tuple(B.shape[:2]) != (b, S) \
+    if B.dim() not in (3, 4) or tuple(B.shape[:2]) != (b, S) \
             or tuple(C.shape) != tuple(B.shape):
         raise ValueError(f"B {tuple(B.shape)} / C {tuple(C.shape)} must be "
-                         f"({b}, {S}, N)")
+                         f"({b}, {S}, N) or ({b}, {S}, G, N)")
+    if B.dim() == 4 and (B.shape[2] < 1 or H % B.shape[2]):
+        raise ValueError(f"{B.shape[2]} B/C groups do not divide {H} heads")
     if tuple(dt.shape) != (b, S, H) or tuple(A.shape) != (H,):
         raise ValueError(f"dt {tuple(dt.shape)} / A {tuple(A.shape)} must "
                          f"be ({b}, {S}, {H}) / ({H},)")
@@ -69,7 +71,8 @@ def check_ssd_scan(x, dt, A, B, C, chunk):
 
 
 def ssd_scan(x, dt, A, B, C, *, chunk: int = 128):
-    """x: (b,S,H,P); dt: (b,S,H) f32; A: (H,) f32; B,C: (b,S,N).
+    """x: (b,S,H,P); dt: (b,S,H) f32; A: (H,) f32; B,C: (b,S,N), or
+    (b,S,G,N) with head h reading group h // (H // G).
 
     Returns (y (b,S,H,P) f32, final state (b,H,P,N) f32)."""
     if x.device.type == "cpu":

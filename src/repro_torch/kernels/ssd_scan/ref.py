@@ -7,7 +7,9 @@
     y_t = C_t . h_t
 
 and ``ssd_chunked`` the chunked form that K7 computes and the CPU path
-runs. Both widen every input to f32.
+runs. Both widen every input to f32. B and C are (b,S,N), every head's,
+or (b,S,G,N) in G groups, head h reading group h // (H // G): the
+grouped forms run the one-group form on each group's heads.
 """
 from __future__ import annotations
 
@@ -17,6 +19,25 @@ import torch.nn.functional as F
 f32 = torch.float32
 
 
+def by_group(fn):
+    """``fn(x, dt, A, B, C, **kw)`` of one B/C group extended to B, C of
+    (b,S,G,N): each group's heads run alone, their y and states joined
+    in head order."""
+    def grouped(x, dt, A, B, C, **kw):
+        if B.dim() == 3:
+            return fn(x, dt, A, B, C, **kw)
+        G = B.shape[2]
+        n = x.shape[2] // G
+        outs = [fn(x[:, :, g * n:(g + 1) * n], dt[..., g * n:(g + 1) * n],
+                   A[g * n:(g + 1) * n], B[:, :, g], C[:, :, g], **kw)
+                for g in range(G)]
+        return (torch.cat([y for y, _ in outs], 2),
+                torch.cat([h for _, h in outs], 1))
+    grouped.__doc__ = fn.__doc__
+    return grouped
+
+
+@by_group
 def ssd_ref(x, dt, A, B, C):
     """x: (b,S,H,P); dt: (b,S,H); A: (H,); B,C: (b,S,N).
 
@@ -35,6 +56,7 @@ def ssd_ref(x, dt, A, B, C):
     return y, h
 
 
+@by_group
 def ssd_chunked(x, dt, A, B, C, *, chunk: int):
     """Chunked SSD scan.
 
@@ -96,6 +118,7 @@ def ssd_chunked(x, dt, A, B, C, *, chunk: int):
     return y, h.transpose(-1, -2)                             # (b,H,P,N)
 
 
+@by_group
 def ssd_three_pass(x, dt, A, B, C, *, chunk: int):
     """The chunk-parallel decomposition K7 runs, in plain torch (for the
     tests and ``chip_smoke.py``; the CPU path runs ``ssd_chunked``):

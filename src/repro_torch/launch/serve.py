@@ -71,13 +71,13 @@ def setup(arch: str, *, reduced: bool = True, batch: int = 4,
           prompt_len: int = 64, seed: int = 0, impl: str = "kernel",
           device=DEFAULT_DEVICE):
     """(model, params in the compute dtype, batch dict of ``make_batch``):
-    random init from ``seed``, cast once for serving; the prompts drawn
-    with numpy from ``seed``."""
+    random init from ``seed`` straight into the compute dtype for serving
+    (no f32 masters); the prompts drawn with numpy from ``seed``."""
     cfg = get_config(arch)
     if reduced:
         cfg = cfg.reduced()
     model = build_model(cfg, impl=impl, device=resolve(device))
-    params = model.cast(model.init(model.generator(seed)))
+    params = model.init(model.generator(seed), dtype=getattr(torch, cfg.dtype))
     return model, params, make_batch(cfg, batch, prompt_len, seed,
                                      model.device)
 

@@ -143,7 +143,8 @@ def gqa_init(gen: torch.Generator, cfg) -> dict:
 
 def gqa_project_qkv(p: dict, cfg, x: torch.Tensor, positions: torch.Tensor):
     """Biases before the head reshape; qk-norm over the head dim after it
-    and before RoPE, as the reference."""
+    and before RoPE, as the reference (no RoPE where ``cfg.rotary`` is
+    False)."""
     B, S, _ = x.shape
     H, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     dt = x.dtype
@@ -159,8 +160,9 @@ def gqa_project_qkv(p: dict, cfg, x: torch.Tensor, positions: torch.Tensor):
     if "q_norm" in p:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    if cfg.has_rotary:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
 
 
@@ -269,8 +271,9 @@ def _gqa_over_ranks(p: dict, cfg, x, positions, *, window: int,
     if "q_norm" in p:
         q = rms_norm(q, _serve.full(p["q_norm"]), cfg.norm_eps)
         k = rms_norm(k, _serve.full(p["k_norm"]), cfg.norm_eps)
-    q = apply_rope(q, pos, cfg.rope_theta)
-    k = apply_rope(k, pos, cfg.rope_theta)
+    if cfg.has_rotary:
+        q = apply_rope(q, pos, cfg.rope_theta)
+        k = apply_rope(k, pos, cfg.rope_theta)
     wo = _serve.head_block(p["wo"], 0, H, Dh, x).to(dt)
     if hi > lo:
         out = _self_attend(cfg, q, _kv_for(k, lo, hi, H // Hkv),

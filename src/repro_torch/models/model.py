@@ -4,7 +4,8 @@ the vision-frontend stub and the encoder-decoder).
 
 ``Model`` wraps a ``ModelConfig``, an attention/scan ``impl``, ``remat``
 and a device, and exposes:
-  * ``init(generator)``          — parameter tree (fp32 master), on device
+  * ``init(generator, dtype=None)`` — parameter tree (fp32 master, or
+    drawn straight into ``dtype``), on device
   * ``cast(params)``             — fp32 master -> the config's compute dtype
   * ``loss_fn(params, batch)``   — mean next-token CE + aux losses
   * ``prefill(params, batch, cache_len)`` — logits for the last position
@@ -109,9 +110,12 @@ class Model:
         """A seeded generator on the model's device, for ``init``."""
         return torch.Generator(device=self.device).manual_seed(int(seed))
 
-    def init(self, generator: torch.Generator) -> dict:
+    def init(self, generator: torch.Generator, dtype=None) -> dict:
         """fp32 master params, drawn from ``generator`` (on this model's
-        device): the reference's distributions, not its numbers."""
+        device): the reference's distributions, not its numbers. With
+        ``dtype`` every f32 leaf comes out in it, the same values as
+        ``init`` then a cast; a pattern config's layers are drawn one at a
+        time into it (a model too large for f32 masters is served so)."""
         if torch.device(generator.device).type != self.device.type:
             raise ValueError(
                 f"generator on {generator.device}, model on {self.device}")
@@ -133,14 +137,18 @@ class Model:
             params["dec_stack"] = _tree.stack_trees(
                 lambda: encdec.dec_block_init(gen, cfg), cfg.n_layers)
         else:
-            params["stack"] = transformer.stack_init(gen, cfg, cfg.n_layers)
+            params["stack"] = transformer.stack_init(gen, cfg, cfg.n_layers,
+                                                     dtype)
         if cfg.frontend is not None:
             params["frontend_proj"] = dense_init(
                 gen, (cfg.frontend.d_frontend, cfg.d_model))
         if cfg.n_meta_tokens:
             params["meta_tokens"] = embed_init(
                 gen, (cfg.n_meta_tokens, cfg.d_model))
-        return params
+        if dtype is None:
+            return params
+        return _tree.tree_map(
+            lambda a: a.to(dtype) if a.dtype == torch.float32 else a, params)
 
     def _on_cpu(self) -> "Model":
         """This model with its device set to the CPU (for the meta
@@ -168,6 +176,8 @@ class Model:
         # indexing accumulates in a run-dependent order on the CPU, and
         # then equal rounds give unequal model digests
         x = F.embedding(tokens, params["embed"].to(dt))
+        if self.cfg.scale_embeddings is False:
+            return x
         return x * torch.tensor(math.sqrt(self.cfg.d_model), dtype=dt)
 
     def _tokens(self, tokens) -> torch.Tensor:
@@ -265,7 +275,7 @@ class Model:
         the sliding window, or 1 slot for an SSM-only model (it carries
         state), as in the reference."""
         cfg = self.cfg
-        if seq_len > MAX_FULL_CACHE and cfg.sliding_window > 0:
+        if seq_len > MAX_FULL_CACHE and (cfg.sliding_window or 0) > 0:
             return cfg.sliding_window
         if seq_len > MAX_FULL_CACHE and cfg.block_kind == BLOCK_SSM:
             return 1
@@ -293,8 +303,9 @@ class Model:
             hidden, caches = transformer.stack_prefill(
                 cfg, params["stack"], x, positions,
                 transformer.layer_windows(cfg), cache_len, impl=self.impl,
-                stack=lambda trees: self._graphs.stack(self.device, trees,
-                                                       into))
+                stack=lambda trees, kind=None: self._graphs.stack(
+                    self.device, trees,
+                    into if into is None or kind is None else into[kind]))
             hidden = rms_norm(hidden[:, -1:], params["final_norm"],
                               cfg.norm_eps)
             return self._logits(params, hidden), caches

@@ -30,6 +30,18 @@ split into G groups (the data-parallel shards of a mesh) and each group
 fills its own capacity buffers, with the same three orders inside a
 group.
 
+A ``dropless`` config (Nemotron-H's MoE) dispatches without capacity
+(``_moe_dropless``): the (token, expert) rows sorted by expert (stable:
+within an expert, earlier tokens first), each expert's row count found on
+the card by ``searchsorted``, and one grouped product an expert
+projection (``grouped_mm``: ``torch._grouped_mm`` on CUDA) over the
+sorted rows; no (E, C, D) buffer and no host sync, so a decode step stays
+capturable (``models/decode_graph.py``). The top-k ties and the per-token
+sum keep the two orders above. It routes by ``_router_sigmoid``, its
+experts are relu², and a ``d_shared`` relu² expert is added to every
+token. The capacity dispatch takes only the reference's MoE (softmax,
+SwiGLU, no shared expert); ``_check_options`` holds each to its own.
+
 Over a mesh of ranks (``DTensor`` tokens and expert weights) the expert
 buffers stay sharded, as the reference's constraints keep them: the
 dispatch plan, a few (T, K) index arrays, is computed whole on every
@@ -60,13 +72,20 @@ from repro_torch.sharding.specs import (P, constrain, contiguous_stride,
 
 def moe_init(gen: torch.Generator, cfg) -> dict:
     m = cfg.moe
+    _check_options(m)
     D, E, F_ = cfg.d_model, m.num_experts, m.d_expert
-    return {
-        "router": dense_init(gen, (D, E)),
-        "w_gate": dense_init(gen, (E, D, F_)),
-        "w_up": dense_init(gen, (E, D, F_)),
-        "w_down": dense_init(gen, (E, F_, D)),
-    }
+    p = {"router": dense_init(gen, (D, E))}
+    if m.activation == "swiglu":
+        p["w_gate"] = dense_init(gen, (E, D, F_))
+    p["w_up"] = dense_init(gen, (E, D, F_))
+    p["w_down"] = dense_init(gen, (E, F_, D))
+    if m.score_bias:
+        p["router_bias"] = torch.zeros(E, dtype=torch.float32,
+                                       device=gen.device)
+    if m.d_shared:
+        p["shared_up"] = dense_init(gen, (D, m.d_shared))
+        p["shared_down"] = dense_init(gen, (m.d_shared, D))
+    return p
 
 
 def router_topk(logits: torch.Tensor, top_k: int):
@@ -102,8 +121,13 @@ def _sum_by_token(contrib: torch.Tensor, st: torch.Tensor, n: int,
     return out
 
 
-def moe_apply(p: dict, cfg, x: torch.Tensor):
-    """x: (B,S,D) -> (out (B,S,D), aux_loss)."""
+def moe_apply(p: dict, cfg, x: torch.Tensor, stats=None):
+    """x: (B,S,D) -> (out (B,S,D), aux_loss). A dropless config fills
+    ``stats`` (a dict) with ``rows_max``, its busiest expert's rows (a
+    device scalar)."""
+    _check_options(cfg.moe)
+    if cfg.moe.dropless:
+        return _moe_dropless(p, cfg, x, stats)
     G = int(os.environ.get("REPRO_MOE_GROUPED", "1"))
     if G > 1:
         return _moe_apply_grouped(p, cfg, x, G)
@@ -411,3 +435,88 @@ def _grouped_combine(y: torch.Tensor, st, sw, slot, keep, K: int):
                           torch.zeros((), dtype=dt, device=y.device))
     return torch.stack([_sum_by_token(contrib[g], st[g], Tg, K)
                         for g in range(G)])
+
+
+# ---------------------------------------------------------------------------
+# dropless dispatch (sigmoid router, relu² experts, a shared expert)
+# ---------------------------------------------------------------------------
+def _router_sigmoid(p: dict, m, xf: torch.Tensor):
+    """xf: (T,D) -> (weights (T,K) f32, idx (T,K) int64). The logits in
+    f32; sigmoid scores; the top k of scores plus ``router_bias`` (ties
+    to the lower expert), the bias picking and not weighing; the picked
+    scores normalised to sum 1 and scaled by ``routed_scale``."""
+    scores = torch.sigmoid(xf.to(torch.float32)
+                           @ p["router"].to(torch.float32))
+    choice = (scores + p["router_bias"].to(torch.float32)
+              if "router_bias" in p else scores)
+    _, idx = torch.sort(choice, dim=-1, descending=True, stable=True)
+    idx = idx[:, :m.top_k]
+    w = torch.gather(scores, 1, idx)
+    w = w / (torch.sum(w, dim=-1, keepdim=True) + 1e-20)
+    return w * m.routed_scale, idx
+
+
+def grouped_mm(a: torch.Tensor, w: torch.Tensor,
+               ends: torch.Tensor) -> torch.Tensor:
+    """a: (R, K) rows sorted by group; w: (G, K, N); ends: (G,) int32,
+    the end row of each group (a running count). -> (R, N): each group's
+    rows times its matrix. On CUDA ``torch._grouped_mm`` (the ends stay
+    on the card); elsewhere a plain product a group."""
+    if a.is_cuda:
+        return torch._grouped_mm(a, w, offs=ends)
+    out = a.new_empty((a.shape[0], w.shape[-1]))
+    start = 0
+    for g, end in enumerate(ends.tolist()):
+        out[start:end] = a[start:end] @ w[g]
+        start = end
+    return out
+
+
+def _check_options(m) -> None:
+    """The capacity dispatch computes the reference's MoE (softmax router,
+    SwiGLU experts, no score bias, routed scale or shared expert); the
+    dropless one Nemotron-H's (sigmoid router, relu² experts)."""
+    if m.dropless:
+        ok = (m.router, m.activation) == ("sigmoid", "relu2")
+    else:
+        ok = (m.router, m.activation, m.score_bias, m.routed_scale,
+              m.d_shared) == ("softmax", "swiglu", False, 1.0, 0)
+    if not ok:
+        raise ValueError(f"{m}: the capacity dispatch takes a softmax "
+                         f"router and SwiGLU experts alone, the dropless "
+                         f"one a sigmoid router and relu2 experts")
+
+
+def _relu2_mlp(rows, up, down, mm=torch.matmul):
+    """``down(relu(rows @ up)^2)``."""
+    return mm(torch.square(F.relu(mm(rows, up))), down)
+
+
+def _moe_dropless(p: dict, cfg, x: torch.Tensor, stats=None):
+    """Every (token, expert) pick computed: rows sorted by expert, the
+    grouped products, the weighted rows summed a token in ascending
+    expert order in f32, then the shared expert added. No aux loss."""
+    m = cfg.moe
+    B, S, D = x.shape
+    E, K = m.num_experts, m.top_k
+    T = B * S
+    dt = x.dtype
+    xf = x.reshape(T, D)
+    w, idx = _router_sigmoid(p, m, xf)
+    flat_e = idx.reshape(-1)
+    order = torch.argsort(flat_e, stable=True)
+    st = torch.div(order, K, rounding_mode="floor")       # each row's token
+    ends = torch.searchsorted(
+        flat_e[order], torch.arange(E, device=x.device),
+        right=True).to(torch.int32)
+    if stats is not None:
+        stats["rows_max"] = torch.max(torch.diff(ends, prepend=ends[:1] * 0))
+    y = _relu2_mlp(xf[st], p["w_up"].to(dt), p["w_down"].to(dt),
+                   lambda a, b: grouped_mm(a, b, ends))
+    contrib = y.to(torch.float32) * w.reshape(-1)[order][:, None]
+    out = _sum_by_token(contrib, st, T, K).to(dt)
+    if "shared_up" in p:
+        out = out + _relu2_mlp(xf, p["shared_up"].to(dt),
+                               p["shared_down"].to(dt))
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return out.reshape(B, S, D), aux

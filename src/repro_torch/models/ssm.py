@@ -3,12 +3,16 @@
 
 Train/prefill uses the chunked SSD algorithm (quadratic intra-chunk
 attention form + linear inter-chunk state passing); decode is the
-O(1)-state recurrence. ``impl="kernel"`` routes the scan through K7
+O(1)-state recurrence. B and C come in ``cfg.n_ssm_groups`` groups (head
+h reads group h // (H / G)) and the gated RMSNorm is taken per group, as
+Mamba2's; at one group every path is the one-group code it always was.
+``impl="kernel"`` routes the scan through K7
 (``kernels/ssd_scan``), the counterpart of the reference's
 ``impl="pallas"``; ``impl="xla"`` runs the plain chunked form. Over a
 mesh of ranks the ``ssm_shard`` variant's constraint (``_ssm_shard``)
 is the reference's ``REPRO_SSM_SHARD``; a prefill runs head-parallel and
-a decode on the cache's own blocks (``sharding/serve.py``).
+a decode on the cache's own blocks (``sharding/serve.py``), with one
+group only.
 """
 from __future__ import annotations
 
@@ -25,12 +29,17 @@ from repro_torch.sharding import serve as _serve
 from repro_torch.sharding.specs import P, constrain, place_cache
 
 
+def _d_xbc(cfg) -> int:
+    """Channels of the conv'd x|B|C: x, then each group's B, then C."""
+    return cfg.d_inner_ssm + 2 * cfg.n_ssm_groups * cfg.ssm.d_state
+
+
 def ssm_init(gen: torch.Generator, cfg) -> dict:
     s = cfg.ssm
     D = cfg.d_model
     d_inner = cfg.d_inner_ssm
     H = cfg.n_ssm_heads
-    d_xbc = d_inner + 2 * s.d_state
+    d_xbc = _d_xbc(cfg)
     dev = gen.device
     lin = torch.linspace(1e-3, 1e-1, H, dtype=torch.float32, device=dev)
     return {
@@ -49,9 +58,8 @@ def ssm_init(gen: torch.Generator, cfg) -> dict:
 
 
 def _split_proj(cfg, proj: torch.Tensor):
-    s = cfg.ssm
     d_inner = cfg.d_inner_ssm
-    d_xbc = d_inner + 2 * s.d_state
+    d_xbc = _d_xbc(cfg)
     z = proj[..., :d_inner]
     xbc = proj[..., d_inner:d_inner + d_xbc]
     dt = proj[..., d_inner + d_xbc:]
@@ -71,6 +79,17 @@ def _causal_conv(xbc: torch.Tensor, conv_w: torch.Tensor,
     return F.silu(out + conv_b.to(xbc.dtype))
 
 
+def _groups_bc(cfg, xbc: torch.Tensor):
+    """B and C of the conv'd x|B|C (..., d_xbc): (..., N) each at one
+    group, else (..., G, N), as views."""
+    d_inner, G, N = cfg.d_inner_ssm, cfg.n_ssm_groups, cfg.ssm.d_state
+    B = xbc[..., d_inner:d_inner + G * N]
+    C = xbc[..., d_inner + G * N:]
+    if G == 1:
+        return B, C
+    return (B.unflatten(-1, (G, N)), C.unflatten(-1, (G, N)))
+
+
 def _scan_inputs(p: dict, cfg, x: torch.Tensor):
     """in_proj, conv and discretisation shared by forward and prefill:
     (z, raw xBC, head inputs xh, B, C, dt, A)."""
@@ -82,8 +101,7 @@ def _scan_inputs(p: dict, cfg, x: torch.Tensor):
     xbc = _causal_conv(xbc_raw, p["conv_w"], p["conv_b"])
     d_inner = cfg.d_inner_ssm
     xh = xbc[..., :d_inner].reshape(b, S, H, P)
-    B = xbc[..., d_inner:d_inner + s.d_state]
-    C = xbc[..., d_inner + s.d_state:]
+    B, C = _groups_bc(cfg, xbc)
     dt = F.softplus(dt.to(torch.float32) + p["dt_bias"])
     # A in the params' dtype, as the reference computes it, then widened
     A = (-torch.exp(p["A_log"])).to(torch.float32)
@@ -98,11 +116,25 @@ def _scan(cfg, xh, dt, A, B, C, impl: str):
     return ssd_chunked(xh, dt, A, B, C, chunk=cfg.ssm.chunk)
 
 
+def _gated_norm(cfg, y, z, w) -> torch.Tensor:
+    """The gated RMSNorm of ``y * silu(z)`` (..., d_inner): over all
+    channels at one group, else over each group's d_inner / G."""
+    u = y * F.silu(z)
+    G = cfg.n_ssm_groups
+    if G == 1:
+        return rms_norm(u, w, cfg.norm_eps)
+    # ``rms_norm``'s f32 arithmetic, its mean square over each group
+    v = u.to(torch.float32).unflatten(-1, (G, u.shape[-1] // G))
+    v = v * torch.rsqrt(torch.mean(torch.square(v), dim=-1, keepdim=True)
+                        + cfg.norm_eps)
+    return (v.flatten(-2) * (1.0 + w.to(torch.float32))).to(u.dtype)
+
+
 def _scan_output(p: dict, cfg, y, xh, z, dtype) -> torch.Tensor:
     b, S = xh.shape[:2]
     y = y + p["D"].to(torch.float32)[:, None] * xh.to(torch.float32)
     y = y.reshape(b, S, cfg.d_inner_ssm).to(dtype)
-    y = rms_norm(y * F.silu(z), p["norm_w"], cfg.norm_eps)
+    y = _gated_norm(cfg, y, z, p["norm_w"])
     return y @ p["out_proj"].to(dtype)
 
 
@@ -132,6 +164,7 @@ def ssm_prefill(p: dict, cfg, x: torch.Tensor, *, impl: str = "xla"):
     """Like ``ssm_forward`` but also returns the decode cache;
     head-parallel over ranks (``_ssm_prefill_over_ranks``)."""
     if _serve.over_ranks(x):
+        _one_group(cfg)
         return _ssm_prefill_over_ranks(p, cfg, x, impl=impl)
     S = x.shape[1]
     z, xbc_raw, xh, B, C, dt, A = _scan_inputs(p, cfg, x)
@@ -140,6 +173,12 @@ def ssm_prefill(p: dict, cfg, x: torch.Tensor, *, impl: str = "xla"):
     # conv state = last (d_conv-1) *pre-activation* xBC rows
     tail = xbc_raw[:, S - (cfg.ssm.d_conv - 1):, :].contiguous()
     return out, {"conv": tail, "state": state}
+
+
+def _one_group(cfg) -> None:
+    if cfg.n_ssm_groups != 1:
+        raise ValueError(f"{cfg.name}: B/C groups over ranks are not "
+                         f"supported")
 
 
 def _ssm_prefill_over_ranks(p: dict, cfg, x, *, impl: str):
@@ -210,7 +249,7 @@ def _ssm_prefill_over_ranks(p: dict, cfg, x, *, impl: str):
 # ---------------------------------------------------------------------------
 def ssm_cache_init(cfg, batch: int, dtype, device) -> dict:
     s = cfg.ssm
-    d_xbc = cfg.d_inner_ssm + 2 * s.d_state
+    d_xbc = _d_xbc(cfg)
     return {
         "conv": torch.zeros((batch, s.d_conv - 1, d_xbc), dtype=dtype,
                             device=device),
@@ -224,6 +263,7 @@ def ssm_decode(p: dict, cfg, x: torch.Tensor, cache: dict):
     and state updated in place; over ranks each rank updates its own
     blocks of them (``_ssm_decode_over_ranks``)."""
     if _serve.over_ranks(x) and _local_cache(x, cache):
+        _one_group(cfg)
         return _ssm_decode_over_ranks(p, cfg, x, cache)
     s = cfg.ssm
     H, P = cfg.n_ssm_heads, s.d_head
@@ -239,16 +279,25 @@ def ssm_decode(p: dict, cfg, x: torch.Tensor, cache: dict):
 
     d_inner = cfg.d_inner_ssm
     xh = xbc[..., :d_inner].reshape(b, H, P)
-    B = xbc[..., d_inner:d_inner + s.d_state]
-    C = xbc[..., d_inner + s.d_state:]
+    B, C = _groups_bc(cfg, xbc)
     dt = F.softplus(dt.to(torch.float32) + p["dt_bias"])      # (B,H)
     dA = torch.exp(dt * -torch.exp(p["A_log"]))
-    h = cache["state"] * dA[:, :, None, None] + torch.einsum(
-        "bh,bhp,bn->bhpn", dt, xh.to(torch.float32), B.to(torch.float32))
-    y = torch.einsum("bhpn,bn->bhp", h, C.to(torch.float32))
+    if B.dim() == 2:
+        h = cache["state"] * dA[:, :, None, None] + torch.einsum(
+            "bh,bhp,bn->bhpn", dt, xh.to(torch.float32), B.to(torch.float32))
+        y = torch.einsum("bhpn,bn->bhp", h, C.to(torch.float32))
+    else:       # each head's group's B and C: (B, G, n, ...) over heads
+        G = B.shape[1]
+        hg = (b, G, H // G)
+        h = cache["state"] * dA[:, :, None, None] + torch.einsum(
+            "bgj,bgjp,bgn->bgjpn", dt.reshape(hg),
+            xh.to(torch.float32).reshape(*hg, P),
+            B.to(torch.float32)).flatten(1, 2)
+        y = torch.einsum("bgjpn,bgn->bgjp", h.unflatten(1, (G, H // G)),
+                         C.to(torch.float32)).flatten(1, 2)
     y = y + p["D"].to(torch.float32)[:, None] * xh.to(torch.float32)
     y = y.reshape(b, d_inner).to(dt_)
-    y = rms_norm(y * F.silu(z), p["norm_w"], cfg.norm_eps)
+    y = _gated_norm(cfg, y, z, p["norm_w"])
     y = (y @ p["out_proj"].to(dt_))[:, None, :]
     cache["conv"].copy_(window[:, 1:])
     cache["state"].copy_(h)

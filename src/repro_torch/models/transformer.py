@@ -9,17 +9,29 @@ the stacked leaves, and each layer's window is a Python int. Decode
 caches keep the reference's tree (``{"attn": {k, v, pos}}``, MLA's
 ``{"attn": {c_kv, k_rope, pos}}``, ``{"ssm": {conv, state}}``) with a
 leading (L,) axis; ``stack_decode`` updates them in place.
+
+A ``layer_pattern`` config (``BLOCK_PATTERN``, Nemotron-H's layout) has
+one pre-norm mixer a layer, ``x + mixer(RMSNorm(x))``, of three kinds:
+Mamba2 (``"M"``), MoE (``"E"``) and GQA attention (``"*"``). Its stack is
+``{"mamba", "moe", "attention"}``, each kind's layers stacked on their
+own leading axis in pattern order (``layer_slots`` maps layer i to its
+kind and index), and its cache ``{"mamba": {conv, state}, "attention":
+{k, v, pos}}`` likewise; an MoE layer has none. The other configs keep
+the one stack and the code paths they always had.
 """
 from __future__ import annotations
 
 import os
+import weakref
 
 import numpy as np
 import torch
 
 from repro_torch import tree as _tree
 from repro_torch.configs.base import (ATTN_MLA, BLOCK_ATTN, BLOCK_HYBRID,
-                                      BLOCK_MOE, BLOCK_SSM)
+                                      BLOCK_MOE, BLOCK_PATTERN, BLOCK_SSM,
+                                      LAYER_ATTN, LAYER_KINDS, LAYER_MOE,
+                                      LAYER_SSM)
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
@@ -39,6 +51,21 @@ def _has_ssm(cfg) -> bool:
 
 def _is_mla(cfg) -> bool:
     return cfg.attn_kind == ATTN_MLA
+
+
+def _is_pattern(cfg) -> bool:
+    return cfg.block_kind == BLOCK_PATTERN
+
+
+def layer_slots(cfg) -> list:
+    """Layer i of a pattern config as (kind name, index in its stack)."""
+    seen: dict = {}
+    slots = []
+    for k in cfg.layer_kinds():
+        name = LAYER_KINDS[k]
+        slots.append((name, seen.get(name, 0)))
+        seen[name] = seen.get(name, 0) + 1
+    return slots
 
 
 def layer_windows(cfg) -> np.ndarray:
@@ -201,8 +228,105 @@ def block_prefill(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor,
         return _ffn(cfg, p, x, serve=True)[0], cache
 
 
-def stack_init(gen: torch.Generator, cfg, n_layers: int) -> dict:
+def _mixer_init(gen: torch.Generator, cfg, kind: str) -> dict:
+    """One pattern layer's params: its pre-norm ``norm`` and its mixer's
+    leaves, in one dict."""
+    p = {"norm": torch.zeros(cfg.d_model, dtype=torch.float32,
+                             device=gen.device)}
+    if kind == LAYER_SSM:
+        p.update(ssm_mod.ssm_init(gen, cfg))
+    elif kind == LAYER_MOE:
+        p.update(moe_mod.moe_init(gen, cfg))
+    else:
+        p.update(attn.gqa_init(gen, cfg))
+    return p
+
+
+def _pattern_init(gen: torch.Generator, cfg, dtype) -> dict:
+    """Each layer drawn in pattern order, one at a time (f32), and
+    written in ``dtype`` into its kind's stack: no f32 copy of more than
+    one layer's leaf."""
+    out: dict = {}
+    for (name, j), kind in zip(layer_slots(cfg), cfg.layer_kinds()):
+        layer = _mixer_init(gen, cfg, kind)
+        if name not in out:
+            n = cfg.layer_kinds().count(kind)
+            out[name] = _tree.tree_map(lambda a: torch.empty(
+                (n,) + tuple(a.shape), dtype=dtype or a.dtype,
+                device=a.device), layer)
+        for dst, src in zip(_tree.leaves(out[name]), _tree.leaves(layer)):
+            dst[j].copy_(src)
+    return out
+
+
+def stack_init(gen: torch.Generator, cfg, n_layers: int,
+               dtype=None) -> dict:
+    """The stacked layers' params in f32, or of a pattern config in
+    ``dtype`` (layer by layer)."""
+    if _is_pattern(cfg):
+        return _pattern_init(gen, cfg, dtype)
     return _tree.stack_trees(lambda: block_init(gen, cfg), n_layers)
+
+
+ROWS_BACKLOG = 256      # busiest-expert counts left on the card at most
+_ROWS_MAX: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+
+def _note_rows_max(tel, layer: int, rows) -> None:
+    """Add ``rows`` (a device scalar) to ``serve.moe_rows_max{layer}`` of
+    ``tel``'s registry when it is next snapshotted (a collector), so
+    nothing waits for the card here; past ``ROWS_BACKLOG`` pending, the
+    older half is added now (long since computed)."""
+    entry = _ROWS_MAX.get(tel)
+    if entry is None:
+        pending: list = []
+
+        def collect(reg, n=None):
+            done = pending[:n]
+            del pending[:len(done)]
+            for lay, r in done:
+                reg.counter("serve.moe_rows_max", layer=lay).inc(int(r))
+        tel.metrics.register_collector(collect)
+        entry = _ROWS_MAX[tel] = (pending, collect)
+    pending, collect = entry
+    pending.append((layer, rows))
+    if len(pending) > ROWS_BACKLOG:
+        collect(tel.metrics, ROWS_BACKLOG // 2)
+
+
+def _moe_serve(cfg, p: dict, h, layer: int):
+    """A served MoE layer in span ``serve.moe``: counts its routed rows
+    (``serve.moe_rows{layer}``, always; a replayed decode graph runs no
+    Python, so its steps are not counted) and, while the telemetry
+    records, its busiest expert's rows (``serve.moe_rows_max{layer}``,
+    resolved at the registry's ``snapshot()``)."""
+    # repro_torch.core imports this module: import its telemetry late
+    from repro_torch.core.telemetry import current
+    tel = current()
+    rows = h.shape[0] * h.shape[1] * cfg.moe.top_k
+    tel.metrics.counter("serve.moe_rows", layer=layer).inc(rows)
+    stats = {} if tel.recording else None
+    with tel.span("serve.moe", cat="serve", device=h.device,
+                  attrs={"layer": layer, "rows": rows}):
+        y, _ = moe_mod.moe_apply(p, cfg, batch_only(h), stats=stats)
+    if stats:
+        _note_rows_max(tel, layer, stats["rows_max"])
+    return y
+
+
+def _pattern_layer(cfg, kind: str, i: int, p: dict, x, serve):
+    """Pattern layer ``i`` of a served step: ``serve(kind, p, h)`` runs
+    the M and * mixers (prefill or decode) and returns (y, cache); the E
+    mixer runs here. Returns (x, cache or None)."""
+    # repro_torch.core imports this module: import its telemetry late
+    from repro_torch.core.telemetry import current
+    h = batch_only(rms_norm(x, p["norm"], cfg.norm_eps))
+    if kind == LAYER_MOE:
+        return x + _moe_serve(cfg, p, h, i), None
+    name = "serve.ssm" if kind == LAYER_SSM else "serve.attention"
+    with current().span(name, cat="serve", device=x.device):
+        y, cache = serve(kind, p, h)
+    return x + y, cache
 
 
 def stack_apply(cfg, stacked: dict, x: torch.Tensor,
@@ -212,6 +336,9 @@ def stack_apply(cfg, stacked: dict, x: torch.Tensor,
     autograd recording) each layer body is checkpointed, as the
     reference's ``jax.checkpoint`` of its scan body: the backward keeps
     each layer's input and runs the layer again."""
+    if _is_pattern(cfg):
+        raise ValueError(f"{cfg.name}: a layer_pattern config is served "
+                         f"(prefill, decode), not trained")
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for w, lp in zip(np.asarray(windows).tolist(), placed_layers(stacked)):
         def body(x_, pos_, lp=lp, w=int(w)):
@@ -222,11 +349,53 @@ def stack_apply(cfg, stacked: dict, x: torch.Tensor,
     return x, aux
 
 
+def _pattern_prefill(cfg, stacked: dict, x, positions, cache_len: int, *,
+                     stack, impl: str):
+    """``stack_prefill`` of a pattern config: each kind's caches stacked
+    by ``stack(trees, name)``."""
+    def serve(kind, p, h):
+        if kind == LAYER_SSM:
+            return ssm_mod.ssm_prefill(p, cfg, h, impl=impl)
+        return attn.gqa_prefill(p, cfg, h, positions, window=0,
+                                cache_len=cache_len, impl=impl)
+    caches: dict = {}
+    for i, ((name, j), kind) in enumerate(zip(layer_slots(cfg),
+                                              cfg.layer_kinds())):
+        x, cache = _pattern_layer(cfg, kind, i, _tree.index(stacked[name], j),
+                                  x, serve)
+        if cache is not None:
+            caches.setdefault(name, []).append(cache)
+    return x, {name: stack(trees, name) for name, trees in caches.items()}
+
+
+def _pattern_decode(cfg, stacked: dict, x, caches: dict, positions):
+    """``stack_decode`` of a pattern config."""
+    def serve(kind, p, h, views=None):
+        if kind == LAYER_SSM:
+            return ssm_mod.ssm_decode(p, cfg, h, views)
+        return attn.gqa_decode(p, cfg, h, views, positions, window=0)
+    for i, ((name, j), kind) in enumerate(zip(layer_slots(cfg),
+                                              cfg.layer_kinds())):
+        p = _tree.index(stacked[name], j)
+        if kind == LAYER_MOE:
+            x, _ = _pattern_layer(cfg, kind, i, p, x, serve)
+            continue
+        views, orig = attn.layer_views(caches[name], j)
+        x, _ = _pattern_layer(cfg, kind, i, p, x,
+                              lambda k, p_, h, v=views: serve(k, p_, h, v))
+        attn.put_back(caches[name], j, views, orig)
+    return x, caches
+
+
 def stack_prefill(cfg, stacked: dict, x: torch.Tensor,
                   positions: torch.Tensor, windows, cache_len: int, *,
                   stack, impl: str = "xla"):
     """Returns (x, stacked caches with leading (L,) axis): the layers'
-    caches stacked by ``stack`` (a list of trees -> one tree)."""
+    caches stacked by ``stack`` (a list of trees -> one tree; of a
+    pattern config ``stack(trees, kind name)`` a kind)."""
+    if _is_pattern(cfg):
+        return _pattern_prefill(cfg, stacked, x, positions, cache_len,
+                                stack=stack, impl=impl)
     caches = []
     for i, w in enumerate(np.asarray(windows).tolist()):
         x, cache = block_prefill(cfg, _tree.index(stacked, i), x, positions,
@@ -239,6 +408,8 @@ def stack_decode(cfg, stacked: dict, x: torch.Tensor, caches: dict,
                  positions: torch.Tensor, windows):
     """caches: tree with leading (L,) axis, updated in place. Returns
     (x, caches)."""
+    if _is_pattern(cfg):
+        return _pattern_decode(cfg, stacked, x, caches, positions)
     for i, w in enumerate(np.asarray(windows).tolist()):
         views, orig = attn.layer_views(caches, i)
         x, _ = block_decode(cfg, _tree.index(stacked, i), x, views,
@@ -250,6 +421,15 @@ def stack_decode(cfg, stacked: dict, x: torch.Tensor, caches: dict,
 def stack_cache_init(cfg, batch: int, cache_len: int, dtype, n_layers: int,
                      device, *, stack) -> dict:
     """A zero cache of ``n_layers`` layers, their trees stacked by
-    ``stack`` (a list of trees -> one tree)."""
+    ``stack`` (a list of trees -> one tree; of a pattern config, a kind's
+    layers)."""
+    if _is_pattern(cfg):
+        kinds = cfg.layer_kinds()
+        one = {"mamba": (LAYER_SSM, lambda: ssm_mod.ssm_cache_init(
+                   cfg, batch, dtype, device)),
+               "attention": (LAYER_ATTN, lambda: attn.gqa_cache_init(
+                   cfg, batch, cache_len, dtype, device))}
+        return {name: stack([make()] * kinds.count(k))
+                for name, (k, make) in one.items() if k in kinds}
     return stack([block_cache_init(cfg, batch, cache_len, dtype, device)]
                  * n_layers)

@@ -32,8 +32,9 @@ from repro_torch.sharding.mesh import Mesh, current_mesh
 # param-name -> (tp_dim, fsdp_dim) counted from the *end* of the shape
 # (so stacked (L, ...) leading axes are ignored)
 _UP = {"wq", "wk", "wv", "w_gate", "w_up", "in_proj", "router", "w_dq",
-       "w_uq", "w_dkv", "w_uk", "w_uv", "frontend_proj", "unembed"}
-_DOWN = {"wo", "w_down", "out_proj"}
+       "w_uq", "w_dkv", "w_uk", "w_uv", "frontend_proj", "unembed",
+       "shared_up"}
+_DOWN = {"wo", "w_down", "out_proj", "shared_down"}
 
 
 class PartitionSpec(tuple):

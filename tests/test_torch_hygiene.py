@@ -173,7 +173,9 @@ def test_import_check_covers_the_model_zoo():
     for arch in list_configs():
         name = arch.replace("-", "_").replace(".", "p")
         assert f"repro_torch.configs.{name}" in mods, arch
-    assert len(list_configs()) == 11
+    # the reference's eleven and the port's own nemotron-3-nano-30b-a3b
+    assert "nemotron-3-nano-30b-a3b" in list_configs()
+    assert len(list_configs()) == 12
 
 
 CONTROL_PLANE = ("metadata", "crypto", "serialization", "telemetry",

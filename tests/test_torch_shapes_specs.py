@@ -51,8 +51,12 @@ CACHE_BATCH, CACHE_LEN = 8, 64
 
 
 def test_arch_lists_match():
+    """The reference's eleven, and the port's own config by name."""
+    from repro_torch.configs import PORT_ONLY_ARCHS
     from repro_torch.configs import list_configs as tlist
-    assert sorted(tlist()) == ARCHS and len(ARCHS) == 11
+    assert PORT_ONLY_ARCHS == ("nemotron-3-nano-30b-a3b",)
+    assert sorted(tlist()) == sorted(ARCHS + list(PORT_ONLY_ARCHS))
+    assert len(ARCHS) == 11
 
 
 def test_shape_table_matches():

@@ -20,6 +20,7 @@ from repro.models import build_model as jbuild
 from repro_torch import tree
 from repro_torch.checkpoint import pytree_digest as tdigest
 from repro_torch.configs import ASSIGNED_ARCHS as T_ASSIGNED
+from repro_torch.configs import PORT_ONLY_ARCHS
 from repro_torch.configs import get_config as tget
 from repro_torch.configs import list_configs as tlist
 from repro_torch.convert import params_from_numpy
@@ -30,9 +31,33 @@ ARCHS = sorted(jlist())
 PKG = Path(__file__).resolve().parents[1] / "src" / "repro_torch"
 
 
+# the port's own config fields, at these values in every config of the
+# reference
+PORT_FIELDS = {"layer_pattern": None, "rotary": None,
+               "scale_embeddings": None, "ssm_groups": None,
+               "ssm_heads": None}
+PORT_MOE_FIELDS = {"router": "softmax", "score_bias": False,
+                   "routed_scale": 1.0, "d_shared": 0,
+                   "activation": "swiglu", "dropless": False}
+
+
+def _reference_fields(cfg) -> dict:
+    """``asdict(cfg)`` without the port's own fields, each checked at the
+    value it has in every config of the reference."""
+    d = dataclasses.asdict(cfg)
+    for k, v in PORT_FIELDS.items():
+        assert d.pop(k) == v, k
+    if d["moe"] is not None:
+        for k, v in PORT_MOE_FIELDS.items():
+            assert d["moe"].pop(k) == v, k
+    return d
+
+
 def test_registry_matches_reference():
-    assert tlist() == jlist()
-    assert len(tlist()) == 11
+    assert PORT_ONLY_ARCHS == ("nemotron-3-nano-30b-a3b",)
+    assert tuple(a for a in tlist() if a not in PORT_ONLY_ARCHS) == jlist()
+    assert set(PORT_ONLY_ARCHS) <= set(tlist()) and len(tlist()) == 12
+    assert len(jlist()) == 11
     assert T_ASSIGNED == J_ASSIGNED
 
 
@@ -40,7 +65,7 @@ def test_registry_matches_reference():
 def test_config_matches_reference(arch):
     for j, t in ((jget(arch), tget(arch)),
                  (jget(arch).reduced(), tget(arch).reduced())):
-        assert dataclasses.asdict(t) == dataclasses.asdict(j)
+        assert _reference_fields(t) == dataclasses.asdict(j)
         assert (t.padded_vocab, t.resolved_head_dim) == (
             j.padded_vocab, j.resolved_head_dim)
         assert [t.layer_is_local(i) for i in range(t.n_layers)] == [
