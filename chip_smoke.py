@@ -8,6 +8,8 @@
 one under ``DIR``: two checkouts' train steps in one call.
 ``python3 chip_smoke.py --decode-graph-only`` runs phase 9b alone (no
 kernel built ahead: the prefills build K6 and K7 at their first call).
+``python3 chip_smoke.py --train-graph-only`` runs phase 9d alone (no
+kernel built).
 
 Phases (every failed check exits non-zero):
 
@@ -246,6 +248,17 @@ Phases (every failed check exits non-zero):
    not gated: the cell's experts share a part). One MoE layer at full
    width on independent experts against the float32 reference, with
    the fp8 reference and both planted faults beyond its tolerance.
+9d. ``train graph``: ``make_train_step`` replayed as one CUDA graph
+   (``training/train_graph.py``) against the eager step on the card
+   (``--train-graph-only`` runs this phase alone): full-width
+   fedforecast-100m as the benchmark's secure round trains it (remat,
+   AdamW, 8 x 256), 10 steps from one start, every one a replay, beside
+   two eager runs of the same steps. Gates: the paths counted (eager,
+   capture, then replays); each step's loss and gradient norm and the
+   final params and moments bitwise the eager run's, or, for a leaf
+   where the two eager runs already differ, within their difference (the
+   leaves named). Prints the capture's ms, the replay's and the eager
+   step's median ms, the launches of each and the peak GiB.
 10. ``dryrun``: ``repro_torch.launch.dryrun`` on meta tensors at the
    shapes the card timed: phase 4's train step (8 x 256), the ``train
    pod`` step (two of it), phase 8's hymba-1.5b prefill and the prefill
@@ -3057,6 +3070,135 @@ def decode_graph_phase(device, card: str):
 
 
 # ---------------------------------------------------------------------------
+# phase 9d: the silo train step replayed as one CUDA graph
+# ---------------------------------------------------------------------------
+TRAIN_GRAPH_STEPS = 10       # steps from one start, replayed and eager
+TRAIN_GRAPH_SEED = 30
+
+
+def train_graph_phase(device, card: str):
+    """9d: ``make_train_step`` through its graph (``training/
+    train_graph.py``) at the benchmark's secure round: full-width
+    fedforecast-100m, remat, AdamW, 8 x 256 device batches. From one start
+    the graph's step runs ``TRAIN_GRAPH_STEPS`` steps once to capture
+    (eager, capture, replays) and then again, every step a replay; two
+    eager runs take the same steps (a fresh ``make_train_step`` a step,
+    whose first step is always eager). Gate: each step's loss and
+    gradient norm and the final params and moments of the replayed run
+    bitwise those of the first eager run; where the two eager runs
+    differ (atomics in a backward), that leaf within the eager runs'
+    difference, and the leaves are named. Prints each path's median step
+    ms (capture: host clock, synchronised; eager and replay:
+    ``median_ms``), the launches of an eager and of a replayed step
+    (``traced_busy``) and the peak GiB."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.telemetry import process
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.training import make_train_step
+
+    cfg = get_config("fedforecast-100m")
+    model = build_model(cfg, remat=True, device=device)
+    params = model.init(model.generator(INIT_SEED))
+    opt = adamw(LR, weight_decay=0.0)
+    gen = torch.Generator(device=device).manual_seed(TRAIN_GRAPH_SEED)
+    batches = [{"tokens": torch.randint(0, cfg.vocab, (BATCH_SIZE, SEQ_LEN),
+                                        generator=gen, device=device)}
+               for _ in range(TRAIN_GRAPH_STEPS)]
+    counts = process().metrics.labeled
+
+    def moved(before):
+        after = counts("train.step_graph", "path")
+        return {p: after.get(p, 0) - before.get(p, 0)
+                for p in ("eager", "capture", "replay")}
+
+    def steps(step_of):
+        """The steps from ``params``: each step's loss and gradient norm,
+        then the final params and moments, as (name, tensor) pairs."""
+        p, o, seen = params, opt.init(params), []
+        for k, b in enumerate(batches):
+            p, o, m = step_of()(p, o, b)
+            seen += [(f"step {k} loss", m["loss"]),
+                     (f"step {k} grad_norm", m["grad_norm"])]
+        return seen + _named_leaves({"params": p, "m": o["m"],
+                                     "v": o["v"]})
+
+    torch.cuda.reset_peak_memory_stats()
+    # the eager runs and timings first: each fresh step's first key would
+    # evict the graph's from the process's store of keys
+    eager_a = steps(lambda: make_train_step(model, opt))
+    eager_b = steps(lambda: make_train_step(model, opt))
+    p0, o0, b0 = params, opt.init(params), batches[0]
+    eager_ms = median_ms(lambda: make_train_step(model, opt)(p0, o0, b0),
+                         reps=5, inner=2)
+    eager_busy, eager_launches, _, _ = traced_busy(
+        make_train_step(model, opt), p0, o0, b0)
+    graph = make_train_step(model, opt)
+    before = counts("train.step_graph", "path")
+    p, o = params, opt.init(params)
+    capture_ms = None
+    for k, b in enumerate(batches):
+        (p, o, _), sec = sync_seconds(graph, p, o, b)
+        if k == 1:
+            capture_ms = sec * 1e3
+    first = moved(before)
+    before = counts("train.step_graph", "path")
+    replayed = steps(lambda: graph)
+    again = moved(before)
+
+    def diff(a, b):
+        return float((a.double() - b.double()).abs().max())
+    varying, outside, same, eager_same = [], [], 0, 0
+    for (name, r), (_, a), (_, b) in zip(replayed, eager_a, eager_b):
+        eager_same += torch.equal(a, b)
+        if torch.equal(r, a):
+            same += 1
+            continue
+        room = diff(a, b)
+        varying.append(f"{name} {diff(r, a):.3e} (eager-to-eager "
+                       f"{room:.3e})")
+        if diff(r, a) > room:
+            outside.append(name)
+    replay_ms = median_ms(lambda: graph(p0, o0, b0), reps=10)
+    before = counts("train.step_graph", "path")
+    replay_busy, replay_launches, _, _ = traced_busy(graph, p0, o0, b0)
+    traced = moved(before)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"train graph: fedforecast-100m full width, remat, AdamW, "
+          f"{TRAIN_GRAPH_STEPS} steps of {BATCH_SIZE} x {SEQ_LEN}; paths "
+          f"{first} then {again}; capture {capture_ms:.1f} ms, replay "
+          f"{replay_ms:.3f} ms a step (device busy {replay_busy:.2f} ms, "
+          f"{replay_launches} launches traced), eager {eager_ms:.3f} ms a "
+          f"step (device busy {eager_busy:.2f} ms, {eager_launches} "
+          f"launches) ({eager_ms / replay_ms:.2f}x); peak {peak:.2f} GiB "
+          f"[{card}]", flush=True)
+    print(f"train graph: each step's loss and grad norm, then the final "
+          f"params and moments: replayed bitwise the eager run in {same} of "
+          f"{len(replayed)}, eager bitwise eager in {eager_same}; differing: "
+          f"{varying or 'none'} [{card}]", flush=True)
+    check(first == {"eager": 1, "capture": 1,
+                    "replay": TRAIN_GRAPH_STEPS - 2}
+          and again == {"eager": 0, "capture": 0,
+                        "replay": TRAIN_GRAPH_STEPS}
+          and not traced["eager"] and not traced["capture"],
+          f"train graph: one eager step, one capture, then replays (got "
+          f"{first}, {again}, traced {traced})")
+    check(not outside, f"train graph: the replayed step bitwise the eager "
+          f"step, or within the eager-to-eager difference; beyond it: "
+          f"{outside}")
+    return {"replay ms": replay_ms, "eager ms": eager_ms}
+
+
+def _named_leaves(tree, prefix=""):
+    """(path, leaf) pairs of a tree of dicts."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree)
+                for x in _named_leaves(tree[k], f"{prefix}{k}/")]
+    return [(prefix.rstrip("/"), tree)]
+
+
+# ---------------------------------------------------------------------------
 # phase 9c: nemotron-3-nano-30b-a3b whole at its published widths
 # ---------------------------------------------------------------------------
 NEMO_ARCH = "nemotron-3-nano-30b-a3b"
@@ -3599,6 +3741,9 @@ def main() -> int:
     if "--nemotron-only" in sys.argv:
         nemotron_phase(device, card)
         return 0
+    if "--train-graph-only" in sys.argv:
+        train_graph_phase(device, card)
+        return 0
 
     from repro_torch.configs import get_config
     from repro_torch.kernels import _build
@@ -3779,6 +3924,8 @@ def main() -> int:
     run_phase("decode graph", peaks, card, decode_graph_phase, device, card)
     torch.cuda.empty_cache()
     run_phase("nemotron", peaks, card, nemotron_phase, device, card)
+    torch.cuda.empty_cache()
+    run_phase("train graph", peaks, card, train_graph_phase, device, card)
     run_phase("dryrun", peaks, card, dryrun_phase, timed, card)
 
     for k in kernels:

@@ -2,9 +2,10 @@
 
 A served decode step launches thousands of small kernels (4,323 for
 hymba-1.5b), and issuing them one by one from Python takes the host
-longer than the card takes to run them. ``DecodeGraphs`` captures the
-whole step, from the embedding to the logits, and replays it with one
-launch. ``Model.decode_step`` goes through it.
+longer than the card takes to run them. ``DecodeGraphs`` replays the
+whole step, from the embedding to the logits, as one graph a key, by the
+policy of ``repro_torch.cuda_graph``. ``Model.decode_step`` goes through
+it.
 
 When it engages: the model's device is the one its graph class serves
 (CUDA), autograd is off, and no leaf of the params or the cache is a
@@ -17,16 +18,9 @@ shapes. The graph reads the params and reads and writes the caller's own
 cache tensors at their addresses, so the cache is still updated in place,
 nothing is copied in or out, and two caches interleaved never alias. The
 token and the position are copied into the graph's own input buffers.
-
-A new key runs one eager step (it loads the lazily loaded kernels and
-the cuBLAS handles); its second step captures the graph and replays it,
-and every later step replays. At most ``CAPACITY`` keys are kept, the
-least recently used going first: each request's prefill makes a fresh
-cache, so a serving loop keeps meeting new keys, and memory must not grow
-with their number. Nothing is captured while the telemetry in scope
-records (a ``torch.profiler`` session on, or an enabled bundle): a
-capture would take its timing events into the graph. A new key then
-runs eagerly, and a captured one still replays.
+Each runner keeps at most ``CAPACITY`` keys: each request's prefill makes
+a fresh cache, so a serving loop keeps meeting new keys, and memory must
+not grow with their number.
 
 Under the same conditions each cache is one buffer (``DecodeGraphs.stack``),
 and a prefill allocates its cache before its activations: a serving loop
@@ -40,20 +34,18 @@ the blocks, and the leaves of two freed caches mix.
 
 The logits handed back are a copy of the graph's output: a caller that
 keeps each step's logits must not see a later replay overwrite them.
-The graphs of one runner share one memory pool: they replay one at a
-time on one stream and keep nothing from one replay to the next. Each
-step counts its path in the process bundle's counter
+Each step counts its path in the process bundle's counter
 ``serve.decode_graph{path=replay|capture|eager}``.
 """
 from __future__ import annotations
 
 import math
-from collections import OrderedDict
 
 import torch
 from torch.distributed.tensor import DTensor
 
 from repro_torch import tree as _tree
+from repro_torch.cuda_graph import Captured, CudaGraph, Graphs, Keys
 
 CAPACITY = 4                # keys (graphs, or keys seen once) kept
 ALIGN = 512                 # bytes: where each leaf of a cache's buffer starts
@@ -79,61 +71,12 @@ def stack_in_one(trees: list, device) -> dict:
     return _tree.unflatten(treedef, out)
 
 
-class CudaGraph:
-    """One step captured on a side stream of ``device`` into a
-    ``torch.cuda.CUDAGraph`` and replayed on the current stream; its
-    memory pool is ``share``'s (another ``CudaGraph``), or a new one.
-    Holds no reference to what the step read."""
-
-    device_type = "cuda"
-
-    def __init__(self, device: torch.device, share=None):
-        self.device = device
-        self.pool = (share.pool if share is not None
-                     else torch.cuda.graph_pool_handle())
-        self._graph = torch.cuda.CUDAGraph()
-
-    def capture(self, fn):
-        """Capture ``fn()``: nothing runs on the card. Returns its
-        outputs, which each replay refills."""
-        with torch.cuda.device(self.device):
-            main = torch.cuda.current_stream()
-            side = torch.cuda.Stream()
-            side.wait_stream(main)
-            with torch.cuda.stream(side):
-                self._graph.capture_begin(pool=self.pool,
-                                          capture_error_mode="thread_local")
-                try:
-                    out = fn()
-                finally:
-                    self._graph.capture_end()
-            main.wait_stream(side)
-        return out
-
-    def replay(self) -> None:
-        with torch.cuda.device(self.device):
-            self._graph.replay()
-
-
-class _Captured:
-    """A key's graph and its input buffers and output."""
-
-    __slots__ = ("graph", "token", "pos", "logits")
-
-    def __init__(self, graph, token, pos, logits):
-        self.graph, self.token, self.pos, self.logits = (graph, token, pos,
-                                                         logits)
-
-
-class DecodeGraphs:
+class DecodeGraphs(Graphs):
     """The decode steps of one model, each key's replayed as a graph
-    (module docstring). ``graph`` is the graph class: ``CudaGraph``, or a
-    stand-in with its ``device_type``, ``(device, share)`` constructor,
-    ``capture(fn)`` and ``replay()``."""
+    (module docstring) of class ``graph`` (``repro_torch.cuda_graph``)."""
 
     def __init__(self, *, graph=CudaGraph):
-        self._graph = graph
-        self._keys: OrderedDict = OrderedDict()   # key -> _Captured or None
+        super().__init__("serve.decode_graph", Keys(CAPACITY), graph)
 
     def _engages(self, device) -> bool:
         return (device.type == self._graph.device_type
@@ -172,12 +115,6 @@ class DecodeGraphs:
             sig.append((a.data_ptr(), a.shape, a.stride(), a.dtype))
         return tuple(sig), token.shape, pos.shape
 
-    @staticmethod
-    def _path(path: str) -> None:
-        # repro_torch.core imports the models: import its telemetry late
-        from repro_torch.core.telemetry import process
-        process().metrics.counter("serve.decode_graph", path=path).inc()
-
     def __call__(self, step, device, params, cache, token, pos):
         """``step(params, cache, token, pos) -> (logits, cache)`` on
         ``device``, eagerly or through this key's graph. Returns (logits,
@@ -186,44 +123,25 @@ class DecodeGraphs:
         if self._engages(device):
             token, pos = torch.as_tensor(token), torch.as_tensor(pos)
             key = self._key(params, cache, token, pos)
-        if key is None or key not in self._keys:
-            if key is not None:
-                self._keys[key] = None
-                if len(self._keys) > CAPACITY:
-                    self._keys.popitem(last=False)
-            self._path("eager")
-            return step(params, cache, token, pos)
-        self._keys.move_to_end(key)
-        entry = self._keys[key]
-        if entry is None:
-            # repro_torch.core imports the models: import its telemetry late
-            from repro_torch.core.telemetry import current
-            if current().recording:
-                self._path("eager")
-                return step(params, cache, token, pos)
-            entry = self._keys[key] = self._capture(step, device, params,
-                                                    cache, token, pos)
-            self._path("capture")
-        else:
-            entry.token.copy_(token)
-            entry.pos.copy_(pos)
-            self._path("replay")
-        entry.graph.replay()
-        return entry.logits.clone(), cache
 
-    def _capture(self, step, device, params, cache, token, pos) -> _Captured:
-        """Capture ``step`` over this key's tensors and new input buffers
-        holding ``token`` and ``pos``."""
-        tok = torch.empty(token.shape, dtype=torch.int64, device=device)
-        at = torch.empty(pos.shape, dtype=torch.int32, device=device)
-        tok.copy_(token)
-        at.copy_(pos)
-        share = next((e.graph for e in self._keys.values()
-                      if e is not None), None)
-        graph = self._graph(device, share)
-        logits, out = graph.capture(lambda: step(params, cache, tok, at))
-        if any(a is not b for a, b in zip(_tree.leaves(out),
-                                          _tree.leaves(cache))):
-            raise RuntimeError("the decode step replaced a cache leaf: a "
-                               "graph of it would write the old one")
-        return _Captured(graph, tok, at, logits)
+        def capture(graph) -> Captured:
+            """``step`` over this key's tensors and new input buffers
+            holding ``token`` and ``pos``."""
+            tok = torch.empty(token.shape, dtype=torch.int64, device=device)
+            at = torch.empty(pos.shape, dtype=torch.int32, device=device)
+            tok.copy_(token)
+            at.copy_(pos)
+            logits, out = graph.capture(lambda: step(params, cache, tok, at))
+            if any(a is not b for a, b in zip(_tree.leaves(out),
+                                              _tree.leaves(cache))):
+                raise RuntimeError("the decode step replaced a cache leaf: "
+                                   "a graph of it would write the old one")
+            return Captured(graph, (tok, at), logits)
+
+        def refill(entry) -> None:
+            entry.inputs[0].copy_(token)
+            entry.inputs[1].copy_(pos)
+
+        return self._run(key, device, lambda: step(params, cache, token, pos),
+                         capture, refill,
+                         lambda entry: (entry.outputs.clone(), cache))

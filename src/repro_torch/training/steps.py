@@ -36,41 +36,50 @@ from repro_torch import tree as _tree
 from repro_torch.optim.adamw import apply_updates
 from repro_torch.sharding.mesh import Mesh, mesh_scope, sharded_program
 from repro_torch.sharding.specs import NamedSharding, contiguous_stride
+from repro_torch.training.train_graph import TrainGraphs
 
 
 def make_train_step(model, opt):
     """(params, opt_state, batch) -> (params, opt_state, metrics), on the
-    model's device (``build_model`` chose it). Spans ``train.step`` and
-    its ``train.forward``, ``train.backward``, ``train.optimizer``."""
-    def train_step(params, opt_state, batch):
+    model's device (``build_model`` chose it). Spans ``train.step`` and,
+    on an eager step, its ``train.forward``, ``train.backward``,
+    ``train.optimizer``. On CUDA each shape's step is replayed as one
+    graph from its second call on (``train_graph.TrainGraphs``, the
+    returned function's ``graphs``)."""
+    # repro_torch.core imports this module: import its telemetry late
+    from repro_torch.core.telemetry import current
+
+    def step(params, opt_state, batch, scalars):
         flat, treedef = _tree.flatten(params)
-        # repro_torch.core imports this module: import its telemetry late
-        from repro_torch.core.telemetry import current
         tel, dev = current(), flat[0].device
-        with tel.span("train.step", cat="train", device=dev):
-            leaves = [p.detach().requires_grad_(True) for p in flat]
-            with sharded_program(flat):
-                with tel.span("train.forward", cat="train", device=dev):
-                    loss, metrics = model.loss_fn(
-                        _tree.unflatten(treedef, leaves), batch)
-                    # over ranks the loss may come back partial (a sum
-                    # pending over the mesh): reduce it, so the backward
-                    # starts from one replicated seed
-                    loss = _replicated(loss)
-                with tel.span("train.backward", cat="train", device=dev):
-                    grads = torch.autograd.grad(loss, leaves)
-            with torch.no_grad(), sharded_program(flat), tel.span(
-                    "train.optimizer", cat="train", device=dev):
-                params = _tree.unflatten(treedef,
-                                         [p.detach() for p in leaves])
-                grads = _tree.unflatten(treedef, list(grads))
-                updates, opt_state, opt_info = opt.update(grads, opt_state,
-                                                          params)
-                params = apply_updates(params, updates)
-            metrics = {**{k: v.detach() for k, v in metrics.items()},
-                       **opt_info, "loss": loss.detach()}
+        leaves = [p.detach().requires_grad_(True) for p in flat]
+        with sharded_program(flat):
+            with tel.span("train.forward", cat="train", device=dev):
+                loss, metrics = model.loss_fn(
+                    _tree.unflatten(treedef, leaves), batch)
+                # over ranks the loss may come back partial (a sum
+                # pending over the mesh): reduce it, so the backward
+                # starts from one replicated seed
+                loss = _replicated(loss)
+            with tel.span("train.backward", cat="train", device=dev):
+                grads = torch.autograd.grad(loss, leaves)
+        with torch.no_grad(), sharded_program(flat), tel.span(
+                "train.optimizer", cat="train", device=dev):
+            params = _tree.unflatten(treedef, [p.detach() for p in leaves])
+            grads = _tree.unflatten(treedef, list(grads))
+            updates, opt_state, opt_info = opt.update(grads, opt_state,
+                                                      params, scalars)
+            params = apply_updates(params, updates)
+        metrics = {**{k: v.detach() for k, v in metrics.items()},
+                   **opt_info, "loss": loss.detach()}
         return params, opt_state, metrics
 
+    def train_step(params, opt_state, batch):
+        dev = _tree.leaves(params)[0].device
+        with current().span("train.step", cat="train", device=dev):
+            return train_step.graphs(step, opt, params, opt_state, batch)
+
+    train_step.graphs = TrainGraphs()
     return train_step
 
 

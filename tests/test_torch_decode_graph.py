@@ -25,6 +25,7 @@ from repro_torch.launch import dryrun, serve
 from repro_torch.models import build_model
 from repro_torch.models.decode_graph import (ALIGN, CAPACITY, CudaGraph,
                                              DecodeGraphs)
+from torch_graph_stand_in import FakeGraph
 
 CPU = torch.device("cpu")
 ROOT = Path(__file__).resolve().parents[1]
@@ -45,34 +46,6 @@ def one_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
-
-
-class FakeGraph:
-    """Stands in for ``CudaGraph`` on the CPU. A CUDA capture runs nothing
-    on the card and the replay that follows it runs the step once; here
-    the capture runs the step (its outputs are the graph's) and that
-    first replay does nothing. Every later replay runs the captured
-    function again (the cache is written in place) and writes its logits
-    into the captured ones, as a graph refills its output buffer."""
-
-    device_type = "cpu"
-    made = []
-
-    def __init__(self, device, share=None):
-        self.fn, self.out, self.fresh, self.replays = None, None, False, 0
-        self.share = share
-        FakeGraph.made.append(self)
-
-    def capture(self, fn):
-        self.fn, self.out, self.fresh = fn, fn(), True
-        return self.out
-
-    def replay(self):
-        self.replays += 1
-        if self.fresh:
-            self.fresh = False
-            return
-        self.out[0].copy_(self.fn()[0])
 
 
 @pytest.fixture(autouse=True)
